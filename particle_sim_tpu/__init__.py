@@ -1,8 +1,8 @@
-"""particle_sim_tpu — TPU-native 3D particle-simulation engine.
+"""particle_sim_tpu — a 3D particle-simulation engine for GPUs.
 
-A brand-new JAX/XLA/Pallas engine with the capabilities of
-``lucascompython/particle-simulation-3d`` (reference at /root/reference),
-designed TPU-first rather than ported. See SURVEY.md for the blueprint.
+A JAX/XLA/Pallas engine with the capabilities of
+``lucascompython/particle-simulation-3d``, designed for an accelerator
+rather than ported line by line. See SURVEY.md for the blueprint.
 """
 
 from .core import (

@@ -3,7 +3,7 @@ window: scripted attractor input, periodic frame renders to PNG, periodic
 checkpoints, stats to stdout.
 
 The reference exposes no CLI (all tunables are egui-mutated compile-time
-defaults, SURVEY.md §5 config); headless TPU runs need one, mirroring the
+defaults, SURVEY.md §5 config); headless device runs need one, mirroring the
 full parameter surface of ``SimParams`` + the UI panel (mouse radius/force
 sliders, gravity, color mode, particle count, generation mode —
 ``app.rs:320-518``).
@@ -38,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--substeps", type=int, default=1)
     p.add_argument("--mesh", choices=["none", "auto"], default="none",
                    help="auto: shard particles over all visible devices "
-                        "(dp axis; pairwise mode uses the ICI ring)")
+                        "(dp axis; pairwise mode uses the ppermute ring)")
     # SimParams surface (defaults = mod.rs:69-84 / app.rs:143-148)
     p.add_argument("--dt", type=float, default=0.016)
     p.add_argument("--gravity", type=float, default=0.0)
@@ -83,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the fine level; window follows the mass centroid "
                         "unless --pm2-window is given). SEVERAL values "
                         "(outermost first) nest a MULTI-level solver "
-                        "(pm2.pmn_accel), each window tracking the "
+                        "(pm2.pmn_accel_ref), each window tracking the "
                         "centroid of the level above's members")
     p.add_argument("--pm2-window", type=float, nargs=3, default=None,
                    metavar=("X", "Y", "Z"),
@@ -107,23 +107,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="static member budget of the exact window's "
                         "all-pairs buffer (multiple of 512)")
     p.add_argument("--pm-persist", action="store_true",
-                   help="persistent cell-sorted PM state (sort-free "
-                        "steady-state frames; needs a supported grid "
-                        "(32/64/128/256) and a static box)")
+                   help="persistent cell-ordered PM state (particles "
+                        "stay in cell order between repairs; needs a "
+                        "grid of 32/64/128/256 and a static box)")
     p.add_argument("--no-two-tier", action="store_true",
                    help="repair the persistent order with the full sort "
                         "only, skipping the segment-local tier-1 pass — "
-                        "the measured win for violent scenes whose bulk "
-                        "motion crosses segments (r5 A/B, "
-                        "ops/pm_persist.py)")
+                        "for violent scenes whose bulk motion crosses "
+                        "segments (ops/pm_persist.py)")
     # rendering
     p.add_argument("--render-every", type=int, default=0)
     p.add_argument("--render-dir", default="frames")
-    p.add_argument("--renderer",
-                   choices=["auto", "scatter", "sorted", "compact"],
-                   default="auto",
-                   help="headless rasterizer: sorted-deposit Pallas (fast, "
-                        "TPU, tile-aligned sizes) or XLA scatter")
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
     # checkpointing
@@ -138,10 +132,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Run the CLI and return the Engine it drove (main() is the entry
+    point; this is for callers that inspect the engine afterwards)."""
     args = build_parser().parse_args(argv)
 
     from ..utils.cache import enable as enable_compile_cache
     enable_compile_cache()
+
+    import jax
 
     from ..core.params import (
         Method, PairwiseParams, PMConfig, SimParams, SphereGeneration,
@@ -171,8 +174,6 @@ def main(argv=None) -> int:
     else:
         mesh = None
         if args.mesh == "auto":
-            import jax
-
             from ..parallel import mesh as mesh_lib
             if len(jax.devices()) > 1:
                 mesh = mesh_lib.make_mesh()
@@ -227,9 +228,7 @@ def main(argv=None) -> int:
             pm=pm_cfg,
             substeps=args.substeps,
             mesh=mesh,
-            # bare --pm keeps "auto": per-frame sorted vs persistent is
-            # picked from the count (engine.PERSIST_AUTO_MIN_N crossover)
-            pm_persist=True if args.pm_persist else "auto",
+            pm_persist=True if args.pm_persist else None,
             pm2=pm2_cfg,
             pmx=pmx_cfg,
             two_tier=not args.no_two_tier,
@@ -266,8 +265,7 @@ def main(argv=None) -> int:
 
         if args.render_every and (i + 1) % args.render_every == 0:
             img = engine.render_frame(camera, params,
-                                      width=args.width, height=args.height,
-                                      renderer=args.renderer)
+                                      width=args.width, height=args.height)
             path = os.path.join(args.render_dir, f"frame_{i + 1:06d}.png")
             write_png(path, img)
             print(f"wrote {path}", file=sys.stderr)
@@ -289,7 +287,7 @@ def main(argv=None) -> int:
             print(json.dumps(line))
 
     # final sync so the last step's cost is visible
-    np.asarray(engine.state.pos.ravel()[0:1])
+    jax.block_until_ready(engine.state.pos)
     wall = time.perf_counter() - t_start
     total = args.steps * engine.substeps * engine.particle_count
     print(json.dumps({
@@ -297,7 +295,7 @@ def main(argv=None) -> int:
         "particle_steps_per_sec": round(total / wall, 1),
         **engine.stats.snapshot(),
     }))
-    return 0
+    return engine
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""Release/packaging tool — the TPU build's analog of the reference's
-``release/`` xtask (``/root/reference/release/src/main.rs:31-55``: a CLI with
+"""Release/packaging tool — this engine's analog of the reference's
+``release/`` xtask (``release/src/main.rs:31-55``: a CLI with
 ``--wasm --wasm-rayon --target --native --public-url --ci`` that produces
 optimized deployable artifacts).
 
 The reference ships a wasm web bundle (trunk + wasm-opt, hashed assets) and a
-tuned native binary (``-C target-cpu=native``, LTO). The TPU-native build has
+tuned native binary (``-C target-cpu=native``, LTO). This engine has
 different artifacts but the same jobs:
 
   web bundle   ``--web``:   the thin-client viewer (index.html / sw.js /
@@ -18,14 +18,14 @@ different artifacts but the same jobs:
                xtask's conditional target-cpu=native,
                ``release/src/main.rs:271-282``).
   kernel warm  ``--warm``:  precompile the jitted steppers for the requested
-               capacity buckets into a persistent XLA cache shipped at
-               ``<out>/xla-cache`` — the deploy-time answer to the
+               capacity buckets into the program's persistent compile
+               cache (utils/cache.py) — the deploy-time answer to the
                reference's "improve startup time" TODO (``README.md:47``);
-               first run on an identical topology loads executables from
+               later runs on the same machine load executables from
                disk instead of compiling.
   AOT export   ``--aot``:   ``jax.export`` the step functions to versioned
                StableHLO artifacts in ``<out>/aot`` — a compiler-portable
-               snapshot of the compute graph (the closest TPU analog of
+               snapshot of the compute graph (the closest analog of
                shipping a compiled binary).
 
 Everything lands under ``--out`` (default ``dist/``) plus a MANIFEST.json
@@ -136,15 +136,14 @@ def build_native(out_dir: str, ci: bool = False) -> list[str]:
 
 def _step_fns_and_args(counts, methods):
     """(label, fn, example_args) for each (count, method) combo."""
-    import jax
     import jax.numpy as jnp
 
     from ..core import generate
     from ..core.params import Method, SimParams, SphereGeneration
     from ..core.state import ParticleState
+    from ..engine.engine import available_methods
     from ..ops import step_jnp, step_pallas
 
-    on_tpu = jax.default_backend() == "tpu"
     pv = jnp.asarray(SimParams(
         gravity=1.0, is_mouse_dragging=True,
         mouse_position=(0.0, 0.0, 48.0)).pack())
@@ -153,8 +152,8 @@ def _step_fns_and_args(counts, methods):
         pos, vel, col = generate.generate(n, SphereGeneration.HOLLOW)
         st = ParticleState.from_arrays(pos, vel, col)
         for m in methods:
-            if m == Method.PALLAS and not on_tpu:
-                continue  # Pallas TPU kernels don't lower on CPU
+            if m not in available_methods():
+                continue  # the Triton kernel compiles only for a GPU
             fn = (step_pallas.step if m == Method.PALLAS else step_jnp.step)
             out.append((f"step_{m.name.lower()}_n{n}", fn,
                         (st.pos, st.vel, pv)))
@@ -162,20 +161,22 @@ def _step_fns_and_args(counts, methods):
 
 
 def warm_kernels(out_dir: str, counts) -> list[str]:
-    """Precompile steppers into a shippable persistent XLA cache."""
+    """Precompile steppers into the program's persistent compile cache
+    (utils/cache.py: JAX_COMPILATION_CACHE_DIR, else <repo>/.jax_cache)
+    so the first interactive frames skip compilation. The cache stays
+    where every entry point looks for it; nothing lands in ``out_dir``."""
     import jax
 
     from ..core.params import Method
+    from ..utils.cache import enable
 
-    cache_dir = os.path.join(out_dir, "xla-cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    cache_dir = enable()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     for label, fn, args in _step_fns_and_args(
             counts, (Method.JNP, Method.PALLAS)):
         jax.block_until_ready(jax.jit(fn)(*args))
-        print(f"  warmed {label}", file=sys.stderr)
-    return [cache_dir]
+        print(f"  warmed {label} into {cache_dir}", file=sys.stderr)
+    return []
 
 
 def aot_export(out_dir: str, counts) -> list[str]:
@@ -209,7 +210,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--native", action="store_true",
                    help="compile the C++ frame packer (--native analog)")
     p.add_argument("--warm", action="store_true",
-                   help="precompile kernels into <out>/xla-cache")
+                   help="precompile the steppers into the compile cache "
+                   "(JAX_COMPILATION_CACHE_DIR, else <repo>/.jax_cache)")
     p.add_argument("--aot", action="store_true",
                    help="jax.export step functions to <out>/aot")
     p.add_argument("--counts", type=int, nargs="+",

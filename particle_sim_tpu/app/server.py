@@ -1,9 +1,9 @@
-"""Streaming server: the TPU engine feeding a thin interactive client.
+"""Streaming server: the device engine feeding a thin interactive client.
 
 The reference couples simulation and presentation in one process
-(egui/wgpu, ``app.rs:521-618``). The TPU-native split (BASELINE.json north
-star): the engine runs next to the TPU and streams packed position/color
-frames; the interactive frontend survives as a thin client — here a browser
+(egui/wgpu, ``app.rs:521-618``). Here the two split: the engine runs next
+to the accelerator and streams packed position/color frames; the
+interactive frontend survives as a thin client — here a browser
 viewer (the reference itself ships a web build, ``index.html`` + trunk) —
 sending input events back.
 
@@ -24,7 +24,7 @@ Wire protocol (binary server->client):
                mode 1: 10-byte records — see io/packer.py;
                mode 2: u32 width | u32 height | rgba u8[4*width*height],
                        count = width*height — the frame is RENDERED ON
-                       DEVICE (render/raster_sorted.py) so the wire cost
+                       DEVICE (render/raster.py) so the wire cost
                        is resolution-bound, not N-bound: a 16M-particle
                        cloud streams as cheaply as a 10k one. The client
                        sends "camera" events instead of rendering.)
@@ -230,15 +230,8 @@ class StreamServer:
                     w, h = self.raster_size
                     w = int(ev.get("width", w))
                     h = int(ev.get("height", h))
-                    # clamp + snap to the raster TILE grid: height to the
-                    # 8-row tile, width UP to the 128-lane tile — client
-                    # widths (canvas.clientWidth) are almost never
-                    # 128-aligned, and a misaligned width silently drops
-                    # render_frame_device to the XLA scatter path, orders
-                    # of magnitude slower at big N (ADVICE r2). The client
-                    # letterboxes the at-most-127-px overshoot.
-                    w = -(-max(128, min(3840, w)) // 128) * 128
-                    h = max(64, min(2160, h)) // 8 * 8
+                    w = max(64, min(3840, w))
+                    h = max(64, min(2160, h))
                     self.raster_size = (w, h)
                     self.camera.aspect = w / h
             elif t == "camera":
@@ -253,7 +246,7 @@ class StreamServer:
 
                 # validate EVERY field before assigning ANY: an event
                 # with a valid pos but NaN yaw must not leave the pose
-                # half-applied for subsequent frames (ADVICE r2)
+                # half-applied for subsequent frames
                 upd = {}
                 if "pos" in ev:
                     x, y, z = ev["pos"]
@@ -299,10 +292,10 @@ class StreamServer:
                                eps: float) -> None:
         """Validate the ENTIRE candidate solver configuration — coarse
         PM + refinement stack + exact window — before committing ANY of
-        it (ADVICE r4: committing engine.pm first let a retained stack
-        that is invalid under the new softening crash the sim thread at
-        trace time inside engine.step; now the event is rejected loudly
-        and the running configuration is untouched)."""
+        it (committing engine.pm first let a retained stack that is
+        invalid under the new softening crash the sim thread at trace
+        time inside engine.step; now the event is rejected loudly and the
+        running configuration is untouched)."""
         from ..ops.pm2 import PM2Config, _validate_levels
 
         eng = self.engine
@@ -349,7 +342,7 @@ class StreamServer:
                 _validate_levels(new_pm, levels)
             if eng.mesh is not None and stack is not None \
                     and not want_persist:
-                raise ValueError("multi-chip pm2 requires pm_persist")
+                raise ValueError("multi-device pm2 requires pm_persist")
             if pmx_cfg is not None:
                 from ..ops import pmx as pmx_mod
                 if want_persist and not (isinstance(stack, tuple)
@@ -358,7 +351,7 @@ class StreamServer:
                         "pmx + pm_persist needs a MULTI-level pm2 "
                         "stack (tuple)")
                 if eng.mesh is not None and not isinstance(stack, tuple):
-                    raise ValueError("multi-chip pmx needs a "
+                    raise ValueError("multi-device pmx needs a "
                                      "MULTI-level pm2 stack")
                 pmx_mod._validate(new_pm, levels, pmx_cfg)
         except ValueError as e:
@@ -376,8 +369,8 @@ class StreamServer:
         if pmx_cfg is not None:
             eng.set_pmx(pmx_cfg)
         if "two_tier" in ev:
-            # repair strategy (r5 A/B: full-sort-only wins on violent
-            # scenes) — a static jit arg, so flipping it just compiles
+            # repair strategy (full-sort-only for violent scenes) — a
+            # static jit arg, so flipping it just compiles
             # the other step variant; the persistent state stays valid
             eng.two_tier = bool(ev["two_tier"])
 
@@ -566,7 +559,7 @@ class StreamServer:
                                              True)),
                     # current wire mode + raster size so the viewer's
                     # Wire-format select reflects a --view-mode raster
-                    # server instead of defaulting to planar (ADVICE r2)
+                    # server instead of defaulting to planar
                     "wire_mode": {0: "planar", 1: "compact",
                                   2: "raster"}[self.wire_mode],
                     "raster_size": list(self.raster_size),
@@ -681,17 +674,15 @@ def main(argv=None) -> int:
                     "render on device and stream the framebuffer (raster "
                     "— resolution-bound wire cost, use for huge N)")
     ap.add_argument("--raster-size", default="1280x720",
-                    help="raster-mode framebuffer, WxH (snapped to the "
-                    "8-px tile grid; widths that are multiples of 128 "
-                    "keep the Pallas fast path)")
+                    help="raster-mode framebuffer, WxH")
     ap.add_argument("--pm", action="store_true",
                     help="start with particle-mesh self-gravity on")
     ap.add_argument("--pm-persist", action="store_true",
-                    help="persistent cell-sorted PM state (implies --pm)")
+                    help="persistent cell-ordered PM state (implies --pm)")
     ap.add_argument("--no-two-tier", action="store_true",
                     help="full-sort-only persistent repairs (skip the "
-                    "segment-local tier-1 pass; the measured win for "
-                    "violent collapse scenes)")
+                    "segment-local tier-1 pass; for violent collapse "
+                    "scenes)")
     ap.add_argument("--pm-g", type=float, default=1.0)
     ap.add_argument("--pm-softening", type=float, default=2.0)
     ap.add_argument("--pm2-size", type=float, nargs="+", default=[0.0],
@@ -722,9 +713,7 @@ def main(argv=None) -> int:
         pairwise=(PairwiseParams(args.pm_g, args.pm_softening)
                   if want_pm else None),
         pm2=pm2_cfg,
-        # bare --pm keeps the "auto" mode: the engine picks per-frame
-        # sorted vs persistent from the count (measured crossover)
-        pm_persist=True if args.pm_persist else "auto",
+        pm_persist=True if args.pm_persist else None,
         two_tier=not args.no_two_tier)
     server = StreamServer(engine, host=args.host, port=args.port,
                           target_fps=args.fps)

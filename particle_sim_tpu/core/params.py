@@ -13,7 +13,7 @@ Mirrors the reference's parameter surface exactly:
     reference's CPU (rayon) backend maps to the jitted jax.numpy reference
     stepper; its compute-shader backend maps to the fused Pallas kernel.
 
-TPU-first design note: instead of a 48-byte uniform buffer, parameters travel
+Design note: instead of a 48-byte uniform buffer, parameters travel
 into jitted steppers as ONE packed ``float32[PARAM_VEC_SIZE]`` device vector
 (``SimParams.pack()``). Every field is a *traced* scalar, so interactive
 per-frame parameter changes (mouse drag, sliders — ``app.rs:290-301``) never
@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 
 # Indices into the packed parameter vector. Keep in sync with SimParams.pack()
-# and with the SMEM layout of the Pallas kernels (ops/step_pallas.py).
+# and with the indices the attractor kernel reads (ops/step_pallas.py).
 P_DT = 0
 P_GRAVITY = 1
 P_MOUSE_FORCE = 2
@@ -69,7 +69,8 @@ class Method(enum.IntEnum):
     """Backend selector mirroring ``SimulationMethod`` (``mod.rs:10-13``).
 
     JNP    — jitted jax.numpy stepper (parity oracle; reference "Cpu" analog).
-    PALLAS — fused Pallas TPU kernel (reference "ComputeShader" analog).
+    PALLAS — hand-written Pallas kernels on the Triton route (reference
+             "ComputeShader" analog; engine.select_paths picks which run).
     """
 
     JNP = 0
@@ -110,16 +111,16 @@ class SimParams:
 
 @dataclasses.dataclass(frozen=True)
 class PMConfig:
-    """Particle-mesh solver configuration (ops/pm.py, ops/pm_pallas.py).
+    """Particle-mesh solver configuration (ops/pm.py).
 
     PM solves the same softened gravity as PairwiseParams' direct sum, at
     O(N + G^3 log G): CIC deposit -> FFT Poisson -> CIC gather. All fields
     are STATIC (they shape grids and the cached Green's-function FFTs);
     the per-step traced scalar (G_const) stays in PairwiseParams.pack().
 
-    grid:      cells per axis (the Pallas fast path supports
-               pm_pallas.SUPPORTED_GRIDS = 32/64/128/256; any other size
-               falls back to the jnp reference solver with a warning).
+    grid:      cells per axis (any size per frame; the persistent
+               cell-ordered mode supports pm_persist.SUPPORTED_GRIDS =
+               32/64/128/256).
     box_min:   world coords of the grid origin.
     box_size:  world extent per axis; cell size h = box_size/grid. Default
                box spans [-64, 64)^3 around the radius-50 generation sphere
@@ -162,8 +163,8 @@ class PairwiseParams:
     """Parameters of the all-pairs O(N^2) interaction extension.
 
     The reference's only force field is the 1-body mouse attractor
-    (``compute.wgsl:56-66``); all-pairs gravity generalizes it (BASELINE.json
-    config 3). Softened monopole attraction with unit masses:
+    (``compute.wgsl:56-66``); all-pairs gravity generalizes it.
+    Softened monopole attraction with unit masses:
 
         a_i = G * sum_j (x_j - x_i) / (|x_j - x_i|^2 + eps^2)^(3/2)
 

@@ -1,16 +1,16 @@
-"""Particle state: SoA component planes resident in HBM.
+"""Particle state: SoA component planes resident in device memory.
 
 The reference stores particles as an interleaved array of 64-byte AoS structs
-(``/root/reference/src/simulation/mod.rs:86-98``: position vec3 + pad,
+(``src/simulation/mod.rs:86-98``: position vec3 + pad,
 velocity vec3 + pad, color vec4, initial_color vec4) used simultaneously as a
-STORAGE and VERTEX buffer. That layout is a GPU-vertex-fetch artifact; on TPU
-it would waste lanes and HBM bandwidth.
+STORAGE and VERTEX buffer. That layout is a vertex-fetch artifact; here it
+would waste memory bandwidth on padding and on strided component loads.
 
-TPU-native layout decisions:
+Layout decisions:
   * **SoA component planes** shaped ``float32[3, R, LANE]`` with
-    ``LANE = 128`` and padded capacity ``R * 128`` — the last dim maps to VPU
-    lanes, the middle dim to sublanes, so every elementwise kernel runs at
-    full vector width and Pallas blocks tile naturally.
+    ``LANE = 128`` and padded capacity ``R * 128`` — each component is one
+    contiguous plane, so elementwise steps read and write coalesced rows,
+    and the kernels see the flattened ``(3, N)`` view of the same memory.
   * **No stored current color.** The per-frame color (``compute.wgsl:74-93``)
     is a pure function of (position, velocity, initial_color, params); we
     compute it on demand in the consumer (packer / rasterizer). This cuts the
@@ -37,8 +37,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-LANE = 128      # TPU lane width (last-dim tiling unit)
-SUBLANE = 8     # float32 sublane tiling unit
+LANE = 128      # row width of the (3, R, LANE) planes
+SUBLANE = 8     # capacity row multiple: capacities are multiples of 1024
 
 
 def cdiv(a: int, b: int) -> int:

@@ -5,8 +5,8 @@ gate, ``mod.rs:48-49``) and Reset (regenerate, ``cpu.rs:172-186``); a crash
 loses the cloud (SURVEY.md §5 failure detection). Because our state is three
 SoA arrays, snapshots are cheap: positions, velocities, init colors sliced
 to the active count, plus scene metadata — a single .npz. This is the
-preemption-recovery story for TPU runs: periodic snapshot, resume on a fresh
-slice.
+preemption-recovery story for long runs: periodic snapshot, resume on a
+fresh machine.
 """
 
 from __future__ import annotations
@@ -40,9 +40,7 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
             [engine.pairwise.gravitational_constant, engine.pairwise.softening]
             if engine.pairwise else None),
         "pm": dataclasses.asdict(engine.pm) if engine.pm else None,
-        # the raw MODE ("auto" | True | False), not its current resolution:
-        # an auto engine resumed at a different count must re-resolve
-        "pm_persist": getattr(engine, "pm_persist", False),
+        "pm_persist": engine.pm_persist,
         # single PM2Config -> dict; multi-level tuple -> list of dicts
         "pm2": (
             [dataclasses.asdict(c) for c in engine.pm2]
@@ -76,7 +74,7 @@ def save(path: str, engine: Engine, step_index: int = 0) -> None:
 def load(path: str, method: Optional[Method] = None,
          interpret: bool = False) -> tuple:
     """-> (Engine, step_index). ``method`` overrides the saved backend (a
-    checkpoint from a TPU run can resume on CPU, like the reference's
+    checkpoint from a GPU run can resume on CPU, like the reference's
     backend hot-swap but state-preserving)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
@@ -103,6 +101,9 @@ def load(path: str, method: Optional[Method] = None,
 
         pm2_cfg = (tuple(_one(d) for d in pm2_meta)
                    if isinstance(pm2_meta, list) else _one(pm2_meta))
+    # older checkpoints may hold the retired mode "auto": it resumes on the
+    # default (per-frame PM) instead of forcing the persistent order
+    persist = meta.get("pm_persist") is True
     pmx_cfg = None
     pmx_meta = meta.get("pmx")
     if pmx_meta:
@@ -118,7 +119,7 @@ def load(path: str, method: Optional[Method] = None,
         pm=PMConfig(**pm_meta) if pm_meta else None,
         interpret=interpret,
         substeps=meta.get("substeps", 1),
-        pm_persist=meta.get("pm_persist", False),
+        pm_persist=persist,
         pm2=pm2_cfg,
         pmx=pmx_cfg,
         two_tier=meta.get("two_tier", True),

@@ -1,6 +1,6 @@
 """All-pairs O(N^2) interaction — jax.numpy oracle.
 
-Capability extension beyond the reference (BASELINE.json config 3): the
+Capability extension beyond the reference: the
 reference's only force field is the 1-body mouse attractor
 (``/root/reference/src/shaders/compute.wgsl:56-66``); this generalizes it to
 softened pairwise monopole attraction with unit masses:
@@ -50,7 +50,50 @@ def pairwise_accel(
     if masses is not None:
         src_w = src_w * masses
     w = w * src_w[None, :]
-    return jnp.einsum("ij,cij->ci", w, diff)
+    # HIGHEST: a GPU may otherwise run this f32 contraction in TF32
+    return jnp.einsum("ij,cij->ci", w, diff,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+def pairwise_accel_blocked(
+    x_i: jax.Array,        # f32[3, Ni] receivers
+    x_j: jax.Array,        # f32[3, Nj] sources
+    n_active,              # active count among GLOBAL sources
+    g_const,
+    softening,
+    *,
+    j_base=0,              # global index of x_j's first column
+    masses=None,           # f32[Nj] source masses (None = unit)
+    tile: int = 256,
+) -> jax.Array:
+    """f32[3, Ni] accelerations — plain XLA, O(tile * Nj) memory.
+
+    The same sum as ``pairwise_accel`` over a ``lax.map`` of receiver
+    tiles, with rectangular receivers/sources and the ``j_base`` offset
+    of the multi-device ring. It is the no-kernel path of every caller of
+    ops/pairwise_pallas.pairwise_accel, and the reference it is checked
+    against at sizes where the [3, N, N] oracle cannot exist. Pure
+    elementwise math and reductions: no matrix unit, so no TF32."""
+    n_i, n_j = x_i.shape[1], x_j.shape[1]
+    tile = min(tile, n_i)
+    n_t = -(-n_i // tile)
+    pad = n_t * tile - n_i
+    xi = jnp.pad(x_i, ((0, 0), (0, pad))).reshape(3, n_t, tile)
+    j_idx = jnp.arange(n_j, dtype=jnp.int32) + jnp.asarray(j_base, jnp.int32)
+    src_w = (jnp.asarray(g_const, jnp.float32)
+             * (j_idx < n_active).astype(jnp.float32))
+    if masses is not None:
+        src_w = src_w * masses
+    eps_sq = jnp.asarray(softening, jnp.float32) ** 2
+
+    def one(xt):                                   # (3, tile)
+        diff = x_j[:, None, :] - xt[:, :, None]    # (3, tile, Nj)
+        inv = jax.lax.rsqrt((diff * diff).sum(axis=0) + eps_sq)
+        w = src_w[None, :] * (inv * inv * inv)
+        return (w[None] * diff).sum(axis=-1)       # (3, tile)
+
+    out = jax.lax.map(one, jnp.moveaxis(xi, 1, 0))   # (n_t, 3, tile)
+    return jnp.moveaxis(out, 0, 1).reshape(3, -1)[:, :n_i]
 
 
 def step_pairwise(

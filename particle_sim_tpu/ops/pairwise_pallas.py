@@ -1,283 +1,132 @@
-"""VMEM-tiled O(N^2) pairwise-force Pallas kernel.
+"""All-pairs softened gravity — a Pallas kernel on the Triton route.
 
 Nothing in the reference to port (its physics is per-particle independent);
-designed from the N-body GPU literature (PAPERS.md) mapped to TPU:
+this is the classic GPU N-body form (GPU Gems 3, ch. 31; PAPERS.md):
 
-  * grid (i_tiles, j_tiles), j minor — the (TILE_I, 3) output accumulator
-    block stays resident in VMEM across the whole j sweep (Pallas reduction
-    grid), initialized at j==0.
-  * positions arrive in BOTH layouts: ``x_nx3`` (N, 3) supplies i-tiles
-    whose per-component columns broadcast along sublanes, ``x_3xn`` (3, N)
-    supplies j-tiles whose rows broadcast along lanes — so the (TI, TJ) pair
-    tiles are pure VPU broadcasts with no in-kernel transposes. The O(N)
-    transpose is done once outside, amortized over the O(N^2) work.
-  * one rsqrt per pair; everything else is mul/add.
-  * scalars (G, eps^2, n_active, j_base) ride in SMEM. ``j_base`` offsets
-    the global j index for the multi-chip ring (parallel/ring.py), where the
-    j-buffer is a rotating shard of the global array.
+  * one program owns a block of ``BLOCK_I`` receivers; their positions and
+    the acceleration accumulators stay in registers for the whole sweep;
+  * a loop inside the program walks the sources in ``BLOCK_J`` tiles,
+    loaded with masks, and forms the (BLOCK_I, BLOCK_J) pair tile;
+  * the accumulators are (BLOCK_I, BLOCK_J) tiles summed elementwise, and
+    reduced over j once after the loop — a per-tile reduction costs a
+    cross-thread shuffle every step (measured 5x slower on an H100);
+  * one ``rsqrt`` per pair; everything else is mul/add, all in f32.
 
-The j-validity mask zeroes forces from padding particles. The softened
-self-pair contributes zero force (numerator is 0), so i==j needs no mask.
+Validity, the gravitational constant and the source masses fold into one
+per-source weight ``G * m_j * [j_base + j < n_active]`` computed outside the
+kernel (O(N) work), so the O(N^2) loop carries no compare. ``j_base``
+offsets the global source index for the multi-device ring
+(parallel/ring.py), where the source buffer is a rotating shard. The
+softened self-pair contributes zero force (numerator is 0), so i == j needs
+no mask.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..core.state import cdiv
-
-DEFAULT_TILE_I = 256   # (TI,TJ) f32 intermediates: 256*2048*4 = 2 MB each
-DEFAULT_TILE_J = 2048  # measured best on v5e (28.7 ms @ 65k^2)
-
-
-def _dividing_tile(n: int, preferred: int) -> int:
-    """Largest tile <= preferred that divides n exactly.
-
-    Ragged edge blocks are NOT safe for the j-reduction: on hardware the
-    out-of-bounds part of a padded block read is uninitialized VMEM (only
-    interpret mode zero-fills), and those lanes would feed the force sum.
-    Capacities are multiples of 1024 (core/state.py), so this normally
-    lands on 1024/2048; it degrades gracefully for odd shard sizes.
-    """
-    t = min(preferred, n)
-    while t > 1 and n % t:
-        t //= 2
-    return max(t, 1)
+# Block shape from a sweep on an H100 (PERF.md): 32x128 with 4 warps was
+# fastest at 65,536 particles; 64x64 and 128x32 within 6%.
+BLOCK_I = 32       # receivers per program
+BLOCK_J = 128      # sources per loop step
+NUM_WARPS = 4
 
 
-def _kernel(scalar_ref, xi_ref, xj_ref, gv_ref, out_ref):
-    eps_sq = scalar_ref[0, 1]
+def _kernel(eps_ref, xi_ref, xj_ref, gv_ref, out_ref, *, n_i, n_j):
+    i0 = pl.program_id(0) * BLOCK_I
+    rows = pl.ds(i0, BLOCK_I)
+    mask_i = i0 + jnp.arange(BLOCK_I, dtype=jnp.int32) < n_i
+    xi, yi, zi = (plgpu.load(xi_ref.at[c, rows], mask=mask_i, other=0.0)
+                  for c in range(3))
+    eps_sq = eps_ref[0]
 
-    j = pl.program_id(1)
+    def body(t, acc):
+        j0 = t * BLOCK_J
+        cols = pl.ds(j0, BLOCK_J)
+        mask_j = j0 + jnp.arange(BLOCK_J, dtype=jnp.int32) < n_j
+        xj, yj, zj = (plgpu.load(xj_ref.at[c, cols], mask=mask_j, other=0.0)
+                      for c in range(3))
+        gv = plgpu.load(gv_ref.at[cols], mask=mask_j, other=0.0)
+        dx = xj[None, :] - xi[:, None]
+        dy = yj[None, :] - yi[:, None]
+        dz = zj[None, :] - zi[:, None]
+        inv = jax.lax.rsqrt(dx * dx + dy * dy + dz * dz + eps_sq)
+        w = gv[None, :] * (inv * inv * inv)
+        return acc[0] + w * dx, acc[1] + w * dy, acc[2] + w * dz
 
-    # i-tile components as (TI, 1) columns; j-tile components as (1, TJ) rows.
-    xi_x, xi_y, xi_z = (xi_ref[:, 0:1], xi_ref[:, 1:2], xi_ref[:, 2:3])
-    xj_x, xj_y, xj_z = (xj_ref[0:1, :], xj_ref[1:2, :], xj_ref[2:3, :])
-
-    dx = xj_x - xi_x          # (TI, TJ)
-    dy = xj_y - xi_y
-    dz = xj_z - xi_z
-    r2 = dx * dx + dy * dy + dz * dz + eps_sq
-    inv = jax.lax.rsqrt(r2)
-    # gv row = G * (global j index < n_active): the O(N) validity/constant
-    # work is hoisted out of the O(N^2) tile loop (one mul here instead of
-    # iota+offset+compare+convert per pair).
-    w = gv_ref[...] * (inv * inv * inv)
-
-    ax = jnp.sum(w * dx, axis=1, keepdims=True)   # (TI, 1)
-    ay = jnp.sum(w * dy, axis=1, keepdims=True)
-    az = jnp.sum(w * dz, axis=1, keepdims=True)
-    acc = jnp.concatenate([ax, ay, az], axis=1)   # (TI, 3)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += acc
+    zero = jnp.zeros((BLOCK_I, BLOCK_J), jnp.float32)
+    acc = jax.lax.fori_loop(0, pl.cdiv(n_j, BLOCK_J), body,
+                            (zero, zero, zero))
+    for c in range(3):
+        plgpu.store(out_ref.at[c, rows], jnp.sum(acc[c], axis=1),
+                    mask=mask_i)
 
 
 @functools.lru_cache(maxsize=None)
-def _build(n_i: int, n_j: int, tile_i: int, tile_j: int, interpret: bool):
-    grid = (cdiv(n_i, tile_i), cdiv(n_j, tile_j))
+def _build(n_i: int, n_j: int, interpret: bool):
     return pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 8), lambda i, j: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_i, 3), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tile_j), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_j), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_i, 3), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_i, 3), jnp.float32),
+        functools.partial(_kernel, n_i=n_i, n_j=n_j),
+        backend="triton",
+        grid=(pl.cdiv(n_i, BLOCK_I),),
+        out_shape=jax.ShapeDtypeStruct((3, n_i), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=2),
         interpret=interpret,
+        name="pairwise_accel",
         cost_estimate=pl.CostEstimate(
             flops=20 * n_i * n_j,
-            bytes_accessed=(n_i + n_j) * 3 * 4 * (n_j // tile_j + 1),
+            bytes_accessed=4 * (3 * n_i + 4 * n_j * pl.cdiv(n_i, BLOCK_I)
+                                + 3 * n_i),
             transcendentals=n_i * n_j,
         ),
     )
+
+
+def source_weights(n_j: int, n_active, g_const, *, j_base=0, masses=None):
+    """f32[n_j] per-source weight G * m_j * [j_base + j < n_active]."""
+    j_idx = jnp.arange(n_j, dtype=jnp.int32) + jnp.asarray(j_base, jnp.int32)
+    g = (jnp.asarray(g_const, jnp.float32)
+         * (j_idx < n_active).astype(jnp.float32))
+    return g if masses is None else g * masses
 
 
 def pairwise_accel(
-    x_nx3: jax.Array,      # f32[Ni, 3] — receiver positions
-    x_3xn: jax.Array,      # f32[3, Nj] — source positions (may be a ring buf)
-    n_active,              # active count among GLOBAL sources
-    g_const: float,
-    softening: float,
-    *,
-    j_base=0,              # global index of x_3xn's first column
-    masses=None,           # f32[Nj] source masses (None = unit)
-    tile_i: int = DEFAULT_TILE_I,
-    tile_j: int = DEFAULT_TILE_J,
-    interpret: bool = False,
-) -> jax.Array:
-    """f32[Ni, 3] accelerations from all sources. Traceable.
-
-    ``masses`` folds into the per-source G*valid row — the O(N^2) kernel
-    is mass-free (gravity is an acceleration field; receiver mass
-    cancels)."""
-    n_i = x_nx3.shape[0]
-    n_j = x_3xn.shape[1]
-    tile_i = _dividing_tile(n_i, tile_i)
-    tile_j = _dividing_tile(n_j, tile_j)
-    scalars = jnp.stack([
-        jnp.float32(g_const), jnp.float32(softening) ** 2,
-        jnp.asarray(n_active, jnp.float32), jnp.asarray(j_base, jnp.float32),
-        jnp.float32(0), jnp.float32(0), jnp.float32(0), jnp.float32(0),
-    ]).reshape(1, 8)
-    j_idx = jnp.arange(n_j, dtype=jnp.int32) + jnp.asarray(j_base, jnp.int32)
-    g_valid = (jnp.asarray(g_const, jnp.float32)
-               * (j_idx < n_active).astype(jnp.float32))
-    if masses is not None:
-        g_valid = g_valid * masses
-    g_valid = g_valid.reshape(1, n_j)
-    call = _build(n_i, n_j, tile_i, tile_j, interpret)
-    return call(scalars, x_nx3, x_3xn, g_valid)
-
-
-# --------------------------------------------------------------- MXU path --
-#
-# EXPERIMENTAL — measured on v5e and NOT the default: the VPU kernel above
-# runs at ~0.14-0.16 T pairs/s (~82% of VPU peak for its ~22 ops/pair),
-# while this MXU formulation measures ~0.08 T pairs/s because the f32
-# matmuls decompose into multi-pass bf16 (Precision.HIGHEST) and the
-# (4,TJ)x(TI,TJ) contraction forces a W relayout per tile. It also loses
-# ~2% relative accuracy near-field to the expanded-|x|^2 cancellation
-# (the dx^2 form of the VPU kernel is exact to f32). Kept as the starting
-# point for a bf16 far-field/hierarchical variant where MXU wins.
-#
-# The idea: move the two O(N^2) contractions onto the MXU leaving ~5 VPU
-# ops + one rsqrt per pair:
-#
-#   r^2_ij = |xi|^2 + |xj|^2 - 2 xi.xj
-#          = dot(-2*xi, xj^T)  +  (|xi|^2 + eps^2)_col  +  |xj|^2_row
-#   W      = rsqrt(r^2)^3                      (G folded into xj_aug)
-#   S      = xj_aug^T @ W^T : (4, TI)          xj_aug = G * [x, y, z, 1] * valid
-#   a_i    = S[:3] - xi * S[3]                 (O(N), done outside)
-#
-# Padding/mask trick: invalid j columns carry |xj|^2 += 1e30, so w =
-# rsqrt(1e30)^3 = 1e-45 which is a denormal -> flushed to exactly 0 on TPU;
-# their xj_aug rows are also zeroed, so they contribute nothing through
-# either path. The contraction output is (4, TI) — sublane-padded to 8
-# rather than lane-padded to 128, which is what makes the accumulation
-# matmul 16x cheaper than the naive (TI,TJ)@(TJ,4) orientation.
-
-MASK_BIG = 1e30
-
-
-def _kernel_mxu(xi_ref, xj_t_ref, xj2_ref, xj_aug_ref, eps_ref, out_ref):
-    eps_sq = eps_ref[0, 0]
-    xi = xi_ref[...]                                   # (TI, 3)
-    xi2 = jnp.sum(xi * xi, axis=1, keepdims=True)      # (TI, 1)
-    dot2 = jax.lax.dot_general(
-        xi * jnp.float32(-2.0), xj_t_ref[...],
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                  # (TI, TJ) = -2 xi.xj
-    r2 = dot2 + (xi2 + eps_sq) + xj2_ref[...]          # (TI, TJ)
-    inv = jax.lax.rsqrt(r2)
-    w = inv * inv * inv
-    s = jax.lax.dot_general(
-        xj_aug_ref[...], w,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                  # (4, TI)
-
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    out_ref[...] += s
-
-
-@functools.lru_cache(maxsize=None)
-def _build_mxu(n_i: int, n_j: int, tile_i: int, tile_j: int, interpret: bool):
-    grid = (cdiv(n_i, tile_i), cdiv(n_j, tile_j))
-    return pl.pallas_call(
-        _kernel_mxu,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile_i, 3), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tile_j), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_j), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, tile_j), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((4, tile_i), lambda i, j: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((4, n_i), jnp.float32),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 2 * 8 * n_i * n_j + 7 * n_i * n_j,
-            bytes_accessed=(n_i + 3 * n_j) * 4 * 4 * (n_j // tile_j + 1),
-            transcendentals=n_i * n_j,
-        ),
-    )
-
-
-def pairwise_accel_mxu(
-    pos_flat: jax.Array,   # f32[3, Ni] — receivers (component rows)
-    src_flat: jax.Array,   # f32[3, Nj] — sources (may be a rotating ring buf)
+    x_i: jax.Array,        # f32[3, Ni] — receiver positions
+    x_j: jax.Array,        # f32[3, Nj] — source positions (may be a ring buf)
     n_active,              # active count among GLOBAL sources
     g_const,
     softening,
     *,
-    j_base=0,
-    tile_i: int = 512,
-    tile_j: int = 1024,
+    j_base=0,              # global index of x_j's first column
+    masses=None,           # f32[Nj] source masses (None = unit)
     interpret: bool = False,
 ) -> jax.Array:
-    """f32[3, Ni] accelerations — MXU formulation. Traceable."""
-    n_i = pos_flat.shape[1]
-    n_j = src_flat.shape[1]
-    tile_i = _dividing_tile(n_i, tile_i)
-    tile_j = _dividing_tile(n_j, tile_j)
+    """f32[3, Ni] accelerations from all sources. Traceable.
 
-    g = jnp.asarray(g_const, jnp.float32)
-    xi = pos_flat.T                                        # (Ni, 3)
-    j_idx = jnp.arange(n_j, dtype=jnp.int32) + jnp.asarray(j_base, jnp.int32)
-    valid = (j_idx < n_active).astype(jnp.float32)         # (Nj,)
-    xj2 = (jnp.sum(src_flat * src_flat, axis=0)
-           + (1.0 - valid) * MASK_BIG).reshape(1, n_j)
-    xj_aug = jnp.concatenate(
-        [src_flat, jnp.ones((1, n_j), jnp.float32)], axis=0
-    ) * (g * valid)[None, :]                               # (4, Nj)
-    eps = jnp.asarray(softening, jnp.float32).reshape(1, 1) ** 2
-
-    call = _build_mxu(n_i, n_j, tile_i, tile_j, interpret)
-    s = call(xi, src_flat, xj2, xj_aug, eps)               # (4, Ni)
-    return s[:3, :] - pos_flat * s[3:4, :]
+    ``masses`` folds into the per-source weight — the O(N^2) kernel is
+    mass-free (gravity is an acceleration field; receiver mass cancels)."""
+    n_i = x_i.shape[1]
+    n_j = x_j.shape[1]
+    gv = source_weights(n_j, n_active, g_const, j_base=j_base, masses=masses)
+    eps_sq = (jnp.asarray(softening, jnp.float32) ** 2).reshape(1)
+    call = _build(n_i, n_j, interpret)
+    return call(eps_sq, x_i.astype(jnp.float32), x_j.astype(jnp.float32), gv)
 
 
 def step_pairwise(
     pos: jax.Array, vel: jax.Array, param_vec: jax.Array,
     pair_vec: jax.Array, n_active, *, masses=None, interpret: bool = False,
 ):
-    """Pallas analog of ops.pairwise.step_pairwise on (3, R, LANE) planes."""
+    """Kernel analog of ops.pairwise.step_pairwise on (3, R, LANE) planes."""
     from . import physics
 
     flat = pos.reshape(3, -1)
-    acc = pairwise_accel(flat.T, flat, n_active, pair_vec[0], pair_vec[1],
-                         masses=masses, interpret=interpret)   # (N, 3)
-    return physics.kick_and_step_planes(pos, vel, acc.T.reshape(pos.shape),
+    acc = pairwise_accel(flat, flat, n_active, pair_vec[0], pair_vec[1],
+                         masses=masses, interpret=interpret)
+    return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
                                         param_vec)

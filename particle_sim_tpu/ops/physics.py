@@ -5,7 +5,7 @@ jax.numpy oracle stepper (ops/step_jnp.py — the reference-CPU-method analog)
 and the fused Pallas kernel (ops/step_pallas.py — the compute-shader analog).
 All functions are shape-polymorphic: they take/return per-component arrays of
 any (broadcast-compatible) shape, so the same code runs on full ``(R, 128)``
-planes under jit and on ``(TILE, 128)`` VMEM blocks inside a kernel.
+planes under jit and on one block's register values inside a kernel.
 
 The physics, in the reference's exact operation order
 (``/root/reference/src/simulation/cpu.rs:65-113`` and
@@ -42,8 +42,8 @@ def attractor_step(
     """One physics step. Scalars may be Python floats or traced 0-d arrays.
 
     ``dragging`` is a float (0.0/1.0) so the whole step is branchless — the
-    reference's per-particle ``if`` (cpu.rs:75-84) becomes a select, which is
-    how the WGSL kernel's divergent branch maps to the VPU anyway.
+    reference's per-particle ``if`` (cpu.rs:75-84) becomes a select, so no
+    thread of a warp diverges.
     Returns (px, py, pz, vx, vy, vz) after the step.
     """
     one = jnp.float32(1.0)
@@ -53,9 +53,9 @@ def attractor_step(
 
     # 2. mouse attractor with quadratic falloff — compute.wgsl:56-66.
     # Formulated around a single rsqrt (the only transcendental in the step):
-    # the reference's length() + normalize() (sqrt then divide) cost two; on
-    # the VPU transcendentals dominate this kernel, so dist and 1/dist are
-    # both derived from rsqrt(dist^2). The cutoff compares squared distances,
+    # the reference's length() + normalize() (sqrt then divide) cost two;
+    # transcendentals are the dearest ops of this kernel, so dist and 1/dist
+    # are both derived from rsqrt(dist^2). The cutoff compares squared distances,
     # and the WGSL clamp on norm_dist (compute.wgsl:62) is dropped because
     # `within` already zeroes every lane with norm_dist >= 1 — identical
     # results, fewer ops.

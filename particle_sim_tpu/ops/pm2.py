@@ -1,12 +1,12 @@
 """Two-level particle-mesh — sub-mesh-scale forces via a refinement window.
 
-The single-level PM (ops/pm.py, ops/pm_pallas.py) resolves forces down to
+The single-level PM (ops/pm.py) resolves forces down to
 its softening, which mesh accuracy pins at eps >= ~2-3 cells of the WORLD
 grid — dense clumps smaller than a few cells feel only their smoothed
 far field. The reference app has no self-gravity at all, so this is a
-capability extension past docs/DESIGN.md's P3M analysis, which showed
-every TPU-shaped *pairwise* short-range correction wastes 10-50x on
-empty slot-pairs; the honest route it names — a multi-level mesh — is
+capability extension past docs/DESIGN.md's P3M analysis, which found a
+global pairwise short-range correction wasting 10-50x on empty slot
+pairs in dense clumps; the route it names — a multi-level mesh — is
 what this module builds:
 
   * **Coarse level**: the ordinary PM over the full box, softened at
@@ -31,14 +31,13 @@ what this module builds:
     1/(window/box)x where it matters, for one extra O(G^3 log G)
     solve.
 
-Both levels run on the same machinery: the jnp reference path
-(pm.cic_* + solve) and the sorted-Pallas fast path (pm_pallas kernels
-with the window's cell coords and the window mask riding as the deposit
-mass). Fast-path cost is one extra grouping sort + deposit + solve +
-gather per frame; the persistent-sorted state (ops/pm_persist.py) runs
-the two-level composition with BOTH levels sort-free.
+Both levels run on the same machinery (pm.cic_deposit / solve / gather,
+the window's cell coords and the window mask riding as the deposit
+weight): one extra deposit + solve + gather per frame. The persistent
+cell-ordered state (ops/pm_persist.py) runs the same composition on its
+slot order.
 
-**Multi-level** (pmn_accel / pmn_accel_ref): the construction nests to
+**Multi-level** (pmn_accel_ref): the construction nests to
 any depth — level k solves the difference kernel
 g_eps_k - g_eps_{k-1} over window_k (clamped inside window_{k-1}'s
 source mask), so the composite telescopes: pairs inside the innermost
@@ -61,7 +60,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import params as P
-from . import physics, pm, pm_pallas
+from . import physics, pm
 
 
 @dataclass(frozen=True)
@@ -137,10 +136,10 @@ def window_min(pos_flat: jax.Array, n_active: jax.Array,
 def fine_kernels(cfg: "P.PMConfig", cfg2: PM2Config,
                  eps_outer: Optional[float] = None) -> tuple:
     """Device-resident difference kernels for the fine solve — pass into
-    pm2_accel*/step_pm2_jit as the ``kernels`` argument when calling
-    under jit on TPU (pm.diff_kernels_device explains why).
+    pm2_accel_ref/step_pm2_jit as the ``kernels`` argument when calling
+    under jit (pm.diff_kernels_device explains why).
     ``eps_outer`` defaults to the coarse softening; deeper levels of the
-    multi-level solver (pmn_accel) pass the PARENT level's softening."""
+    multi-level solver (pmn_accel_ref) pass the PARENT level's softening."""
     h2 = cfg2.window_size / cfg.grid
     eo = cfg.softening if eps_outer is None else eps_outer
     return pm.diff_kernels_device(cfg.grid, h2, cfg2.softening,
@@ -148,7 +147,7 @@ def fine_kernels(cfg: "P.PMConfig", cfg2: PM2Config,
 
 
 def levels_kernels(cfg: "P.PMConfig", levels) -> tuple:
-    """Per-level device kernels for pmn_accel: level k's difference
+    """Per-level device kernels for pmn_accel_ref: level k's difference
     kernel subtracts the PREVIOUS level's softening (telescoping)."""
     out, eps_outer = [], cfg.softening
     for c2 in levels:
@@ -157,58 +156,23 @@ def levels_kernels(cfg: "P.PMConfig", levels) -> tuple:
     return tuple(out)
 
 
-def _fine_accel_ref(pos_flat, n_active, cfg, cfg2, masses, wmin,
-                    kernels=None, eps_outer: Optional[float] = None):
-    """f32[3, N] difference-kernel acceleration, unmasked (jnp path).
-    ``eps_outer`` defaults to the coarse softening (two-level mode)."""
-    h2 = cfg2.window_size / cfg.grid
-    eo = cfg.softening if eps_outer is None else eps_outer
-    coords2 = pm.cell_coords_dyn(pos_flat, wmin, h2, cfg.grid)
-    n = pos_flat.shape[1]
-    live = jnp.arange(n, dtype=jnp.int32) < n_active
-    w_src = (_in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin)
-             & live).astype(jnp.float32)
-    m_src = w_src if masses is None else w_src * masses
-    rho2 = pm.cic_deposit_ref(pos_flat, n_active, cfg, coords=coords2,
-                              masses=m_src)
-    grids2 = pm.solve_accel_diff(rho2, cfg.grid, h2, cfg2.softening,
-                                 eo, cfg2.gradient,
-                                 kernels=kernels)
-    return pm.cic_gather_ref(grids2, pos_flat, cfg, coords=coords2)
-
-
-def pm2_accel_ref(pos_flat: jax.Array, n_active: jax.Array, g_const,
-                  cfg: "P.PMConfig", cfg2: PM2Config,
-                  masses=None, kernels=None) -> jax.Array:
-    """f32[3, N] two-level PM acceleration — jnp reference path (the
-    one-level case of pmn_accel_ref; receivers == sources, so the
-    correction acts on window-internal pairs only and is
-    antisymmetric)."""
-    return pmn_accel_ref(pos_flat, n_active, g_const, cfg, (cfg2,),
-                         masses=masses,
-                         kernels=None if kernels is None else (kernels,))
-
-
-def fine_accel_fast(pos_flat: jax.Array, live: jax.Array,
-                    cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
-                    kernels=None, interpret: bool = False,
-                    wmin=None, psum_axis=None,
-                    eps_outer: Optional[float] = None) -> jax.Array:
+def fine_accel(pos_flat: jax.Array, live: jax.Array,
+               cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
+               kernels=None, wmin=None, psum_axis=None,
+               eps_outer: Optional[float] = None) -> jax.Array:
     """f32[3, N] fine-level (difference-kernel) acceleration in the
-    CALLER's slot order, already masked to window-internal receivers —
-    sorted-Pallas path. ``live`` is an explicit bool[N] (identity order
-    passes ``arange < n_active``; the persistent sorted state passes
+    CALLER's slot order, already masked to window-internal receivers.
+    ``live`` is an explicit bool[N] (identity order passes
+    ``arange < n_active``; the persistent state passes
     ``ids < n_active``, ops/pm_persist.py).
 
-    The fine level reuses the sorted CIC kernels with the window's cell
-    coords; particles outside the window clamp to the window boundary
-    with deposit weight zero (the window mask rides as the mass payload)
-    and their gathered garbage is masked by the margin test. The per-
-    frame fine grouping sort is paid here (window membership changes
-    every frame, so there is no persistent fine order to maintain).
-
-    ``wmin`` overrides the window origin (callers that already computed
-    a global one); ``psum_axis`` (shard_map) makes the origin global and
+    Particles outside the window clamp to the window boundary with
+    deposit weight zero (the window mask rides as the deposit weight) and
+    their gathered values are masked by the same window test.
+    ``eps_outer`` defaults to the coarse softening (two-level mode);
+    deeper levels of the multi-level solver pass the PARENT level's.
+    ``wmin`` overrides the window origin (callers that already computed a
+    global one); ``psum_axis`` (shard_map) makes the origin global and
     psums the fine mass grid before the replicated solve — the same
     one-grid-psum coupling as the coarse level (parallel/pm_dp.py)."""
     if wmin is None:
@@ -217,35 +181,28 @@ def fine_accel_fast(pos_flat: jax.Array, live: jax.Array,
     h2 = cfg2.window_size / cfg.grid
     eo = cfg.softening if eps_outer is None else eps_outer
     coords2 = pm.cell_coords_dyn(pos_flat, wmin, h2, cfg.grid)
-    inner = _in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin) & live
-    w_src = inner.astype(jnp.float32)
+    w_src = (_in_window(pos_flat, wmin, cfg2.window_size, cfg2.margin)
+             & live).astype(jnp.float32)
     m_src = w_src if masses is None else w_src * masses
-    key_s, idx_s, frac_s, mass_s = pm_pallas.pm_sort(
-        pos_flat, None, cfg, coords=coords2, masses=m_src, live=live)
-    rho2 = pm_pallas.pm_deposit_sorted(key_s, frac_s, mass_s,
-                                       interpret=interpret, grid=cfg.grid)
+    rho2 = pm.cic_deposit(coords2, m_src, cfg.grid)
     if psum_axis is not None:
         rho2 = jax.lax.psum(rho2, psum_axis)
     grids2 = pm.solve_accel_diff(rho2, cfg.grid, h2, cfg2.softening,
-                                 eo, cfg2.gradient,
-                                 kernels=kernels)
-    acc2 = pm_pallas.pm_gather_sorted(grids2, key_s, frac_s, idx_s,
-                                      interpret=interpret, grid=cfg.grid)
+                                 eo, cfg2.gradient, kernels=kernels)
     # receivers == sources: window-internal pairs only (antisymmetric)
-    return acc2 * w_src[None]
+    return pm.cic_gather(grids2, coords2, cfg.grid) * w_src[None]
 
 
-def pm2_accel(pos_flat: jax.Array, n_active: jax.Array, g_const,
-              cfg: "P.PMConfig", cfg2: PM2Config, *, masses=None,
-              kernels=None, base_kernels=None,
-              interpret: bool = False) -> jax.Array:
-    """f32[3, N] two-level PM acceleration — sorted-Pallas fast path for
-    BOTH levels (grid 128, N a multiple of 512; the one-level case of
-    pmn_accel)."""
-    return pmn_accel(pos_flat, n_active, g_const, cfg, (cfg2,),
-                     masses=masses, interpret=interpret,
-                     base_kernels=base_kernels,
-                     kernels=None if kernels is None else (kernels,))
+def pm2_accel_ref(pos_flat: jax.Array, n_active: jax.Array, g_const,
+                  cfg: "P.PMConfig", cfg2: PM2Config,
+                  masses=None, kernels=None,
+                  base_kernels=None) -> jax.Array:
+    """f32[3, N] two-level PM acceleration (the one-level case of
+    pmn_accel_ref; receivers == sources, so the correction acts on
+    window-internal pairs only and is antisymmetric)."""
+    return pmn_accel_ref(pos_flat, n_active, g_const, cfg, (cfg2,),
+                         masses=masses, base_kernels=base_kernels,
+                         kernels=None if kernels is None else (kernels,))
 
 
 # ---------------------------------------------------------------------------
@@ -256,10 +213,15 @@ def _validate_levels(cfg: "P.PMConfig", levels) -> tuple:
     """Static nesting checks: each level's softening strictly below its
     parent's (the difference split needs eps_k < eps_{k-1}) and each
     window small enough to fit inside the parent's margin-shrunk source
-    mask (so the traced origin clamp in _nested_wmins can always nest)."""
+    mask (so the traced origin clamp in _nested_wmins can always nest),
+    all inside a static coarse box."""
     levels = tuple(levels)
     if not levels:
         raise ValueError("need at least one refinement level")
+    if cfg.auto_box:
+        # the windows and their softenings are in world units; an
+        # auto-box coarse level solves in cell units of a moving box
+        raise ValueError("refinement levels need a static coarse box")
     prev_size = float(cfg.box_size)
     prev_eps = float(cfg.softening)
     prev_margin = 0.0
@@ -322,8 +284,8 @@ def _nested_wmins(pos_flat, live, cfg, levels, masses, psum_axis=None):
 
 def pmn_accel_ref(pos_flat: jax.Array, n_active: jax.Array, g_const,
                   cfg: "P.PMConfig", levels, masses=None,
-                  kernels=None) -> jax.Array:
-    """f32[3, N] MULTI-level PM acceleration — jnp reference path.
+                  kernels=None, base_kernels=None) -> jax.Array:
+    """f32[3, N] MULTI-level PM acceleration.
 
     ``levels``: nested refinement windows (PM2Config), outermost first.
     Level k solves the isolated Hockney convolution with the difference
@@ -333,101 +295,59 @@ def pmn_accel_ref(pos_flat: jax.Array, n_active: jax.Array, g_const,
     innermost window that contains it. One extra O(G^3 log G) solve per
     level; effective spatial refinement multiplies per level. With one
     level this is exactly pm2_accel_ref. ``kernels``: optional
-    levels_kernels(cfg, levels) output (jit-argument kernels)."""
+    levels_kernels(cfg, levels) output and ``base_kernels`` the coarse
+    pm.base_kernels_device pairs (jit-argument kernels)."""
     levels = _validate_levels(cfg, levels)
     acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening, cfg,
-                          masses=masses)
+                          masses=masses, kernels=base_kernels)
     n = pos_flat.shape[1]
     live = jnp.arange(n, dtype=jnp.int32) < n_active
     wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
     eps_outer = cfg.softening
     for k, (c2, w) in enumerate(zip(levels, wmins)):
         ker = None if kernels is None else kernels[k]
-        acc2 = _fine_accel_ref(pos_flat, n_active, cfg, c2, masses, w,
-                               kernels=ker, eps_outer=eps_outer)
-        inner = (_in_window(pos_flat, w, c2.window_size, c2.margin)
-                 & live).astype(jnp.float32)
-        acc = acc + acc2 * inner[None]
-        eps_outer = float(c2.softening)
-    return g_const * pm.momentum_clean(acc, n_active, masses)
-
-
-def pmn_accel(pos_flat: jax.Array, n_active: jax.Array, g_const,
-              cfg: "P.PMConfig", levels, *, masses=None, kernels=None,
-              base_kernels=None, interpret: bool = False) -> jax.Array:
-    """f32[3, N] multi-level PM acceleration — sorted-Pallas fast path
-    for every level (grid 128, N a multiple of 512). Cost: one grouping
-    sort + deposit + solve + gather per level on top of the coarse PM
-    frame (pm2_accel's fine-level cost times len(levels))."""
-    if cfg.auto_box:
-        raise ValueError("multi-level PM needs a static coarse box")
-    levels = _validate_levels(cfg, levels)
-    acc = pm_pallas.pm_accel(pos_flat, n_active, 1.0, cfg, masses=masses,
-                             interpret=interpret,
-                             base_kernels=base_kernels)
-    n = pos_flat.shape[1]
-    live = jnp.arange(n, dtype=jnp.int32) < n_active
-    wmins = _nested_wmins(pos_flat, live, cfg, levels, masses)
-    eps_outer = cfg.softening
-    for k, (c2, w) in enumerate(zip(levels, wmins)):
-        ker = None if kernels is None else kernels[k]
-        acc = acc + fine_accel_fast(pos_flat, live, cfg, c2,
-                                    masses=masses, kernels=ker,
-                                    interpret=interpret, wmin=w,
-                                    eps_outer=eps_outer)
+        acc = acc + fine_accel(pos_flat, live, cfg, c2, masses=masses,
+                               kernels=ker, wmin=w, eps_outer=eps_outer)
         eps_outer = float(c2.softening)
     return g_const * pm.momentum_clean(acc, n_active, masses)
 
 
 def step_pmn(pos: jax.Array, vel: jax.Array, param_vec: jax.Array,
              pair_vec: jax.Array, n_active: jax.Array, cfg: "P.PMConfig",
-             levels, *, masses=None, kernels=None, base_kernels=None,
-             use_fast: bool = True,
-             interpret: bool = False) -> Tuple[jax.Array, jax.Array]:
+             levels, *, masses=None, kernels=None,
+             base_kernels=None) -> Tuple[jax.Array, jax.Array]:
     """One frame: multi-level PM self-gravity + attractor step on
-    (3, R, LANE) planes — same contract as pm_pallas.step_pm."""
+    (3, R, LANE) planes — same contract as pm.step_pm_ref."""
     flat = pos.reshape(3, -1)
-    fn = pmn_accel if use_fast else pmn_accel_ref
-    kw = ({"interpret": interpret, "base_kernels": base_kernels}
-          if use_fast else {})
-    acc = fn(flat, n_active, pair_vec[0], cfg, levels, masses=masses,
-             kernels=kernels, **kw)
+    acc = pmn_accel_ref(flat, n_active, pair_vec[0], cfg, levels,
+                        masses=masses, kernels=kernels,
+                        base_kernels=base_kernels)
     return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
                                         param_vec)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "levels", "use_fast",
-                                             "interpret"))
+@functools.partial(jax.jit, static_argnames=("cfg", "levels"))
 def step_pmn_jit(pos, vel, param_vec, pair_vec, n_active, cfg, levels,
-                 use_fast: bool = True, interpret: bool = False,
                  masses=None, kernels=None, base_kernels=None):
     return step_pmn(pos, vel, param_vec, pair_vec, n_active, cfg, levels,
-                    masses=masses, kernels=kernels, use_fast=use_fast,
-                    base_kernels=base_kernels, interpret=interpret)
+                    masses=masses, kernels=kernels,
+                    base_kernels=base_kernels)
 
 
 def step_pm2(pos: jax.Array, vel: jax.Array, param_vec: jax.Array,
              pair_vec: jax.Array, n_active: jax.Array, cfg: "P.PMConfig",
              cfg2: PM2Config, *, masses=None, kernels=None,
-             base_kernels=None, use_fast: bool = True,
-             interpret: bool = False) -> Tuple[jax.Array, jax.Array]:
+             base_kernels=None) -> Tuple[jax.Array, jax.Array]:
     """One frame: two-level PM self-gravity + attractor step on
-    (3, R, LANE) planes — same contract as pm_pallas.step_pm."""
-    flat = pos.reshape(3, -1)
-    fn = pm2_accel if use_fast else pm2_accel_ref
-    kw = ({"interpret": interpret, "base_kernels": base_kernels}
-          if use_fast else {})
-    acc = fn(flat, n_active, pair_vec[0], cfg, cfg2, masses=masses,
-             kernels=kernels, **kw)
-    return physics.kick_and_step_planes(pos, vel, acc.reshape(pos.shape),
-                                        param_vec)
+    (3, R, LANE) planes — same contract as pm.step_pm_ref."""
+    return step_pmn(pos, vel, param_vec, pair_vec, n_active, cfg, (cfg2,),
+                    masses=masses, base_kernels=base_kernels,
+                    kernels=None if kernels is None else (kernels,))
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "cfg2", "use_fast", "interpret"))
+@functools.partial(jax.jit, static_argnames=("cfg", "cfg2"))
 def step_pm2_jit(pos, vel, param_vec, pair_vec, n_active, cfg, cfg2,
-                 use_fast: bool = True, interpret: bool = False,
                  masses=None, kernels=None, base_kernels=None):
     return step_pm2(pos, vel, param_vec, pair_vec, n_active, cfg, cfg2,
-                    masses=masses, kernels=kernels, use_fast=use_fast,
-                    base_kernels=base_kernels, interpret=interpret)
+                    masses=masses, kernels=kernels,
+                    base_kernels=base_kernels)

@@ -3,7 +3,7 @@ real-space correction, window-bounded instead of screening-bounded.
 
 docs/DESIGN.md's P3M analysis rejected a GLOBAL real-space correction:
 the correction range of a mesh-resolvable screening spans hundreds of
-interparticle spacings in dense clumps, so every TPU-shaped neighbor
+interparticle spacings in dense clumps, so a fixed-budget neighbor
 scheme wastes 10-50x on empty/far slot pairs. This module takes the
 other branch that analysis left open: make the correction EXACT and
 confine it to the (tracked) window where it matters — the innermost
@@ -24,16 +24,16 @@ ops/pm2.py makes at every level); pairs outside keep the mesh force.
 only the far tail the mesh already resolves. The correction is
 antisymmetric over members by construction (momentum-exact).
 
-Cost: O(B^2) over the member budget — two passes of the measured
-all-pairs kernel (ops/pairwise_pallas.py, ~0.15 T pairs/s/chip): 65k
-members ≈ 2 x 29 ms. Membership is compacted into a static
-``capacity`` buffer by a stable flag sort (members first); the engine
+Cost: O(B^2) over the member budget — two all-pairs passes
+(ops/pairwise_pallas.py's kernel, or the blocked plain-XLA form). The
+membership is compacted into a static ``capacity`` buffer by a stable
+flag sort (members first) and the correction scattered back; the engine
 rejects no frame — overflowing windows just truncate to the first
 ``capacity`` members by slot order, reported via the returned count so
 callers can warn. (On the persistent multi-level order the innermost
 class is already a contiguous slot range, so ONE dynamic slice replaces
-the flag sort and the un-sort — pm_persist.accel_sorted_multi's cfgx
-path; measured ~free at 16M, docs/DESIGN.md.)
+the flag sort and the scatter — pm_persist.accel_sorted_multi's cfgx
+path.)
 
 Reference parity: the reference app has no self-gravity at all
 (SURVEY.md §2) — this is a capability extension, tested against the
@@ -65,7 +65,7 @@ class PMXConfig:
                  window; must be < the innermost mesh softening (the
                  difference split, as pm2._validate_levels).
     capacity:    static member budget B of the all-pairs buffer
-                 (multiple of 512; 65536 ≈ 2x29 ms on v5e).
+                 (multiple of 512).
     margin:      shrink of the member mask inside the window (world
                  units), as pm2.PM2Config.margin.
     window_min:  static origin, or None to track the parent level's
@@ -112,27 +112,38 @@ def exact_accel_ref(pos_flat: jax.Array, live: jax.Array,
     return (a_x - a_p) * w[None]
 
 
+def pair_accel(use_kernel: bool, interpret: bool = False):
+    """The all-pairs function of the exact window: the Triton kernel
+    (ops/pairwise_pallas.py) or the blocked plain-XLA form, with the
+    same signature (receivers f32[3, Ni], sources f32[3, Nj], n_active,
+    G, softening, masses=...)."""
+    if use_kernel:
+        return functools.partial(pairwise_pallas.pairwise_accel,
+                                 interpret=interpret)
+    return pairwise_jnp.pairwise_accel_blocked
+
+
 def exact_accel(pos_flat: jax.Array, live: jax.Array, cfgx: PMXConfig,
                 eps_prev: float, *, masses=None, wmin=None,
-                interpret: bool = False,
+                use_kernel: bool = False, interpret: bool = False,
                 psum_axis=None) -> Tuple[jax.Array, jax.Array]:
-    """(corr f32[3, N], n_members i32) — fast path.
+    """(corr f32[3, N], n_members i32) — compact-buffer path.
 
     Members are compacted (stable flag sort, members-first) into a
-    static ``cfgx.capacity`` buffer; two passes of the VMEM-tiled
-    all-pairs kernel compute the difference field; one carried-index
-    sort scatters it back (the same un-sort trick as pm_pallas).
-    Members past the capacity are dropped from the correction (they
-    keep the pure mesh force) — the returned count lets callers warn.
+    static ``cfgx.capacity`` buffer; two all-pairs passes (pair_accel)
+    compute the difference field, which is scattered back by the carried
+    index. Members past the capacity are dropped from the correction
+    (they keep the pure mesh force) — the returned count lets callers
+    warn.
 
     ``psum_axis``: NOT supported (the compact buffer is shard-local, so
-    cross-shard member pairs would be missed) — multi-chip callers use
+    cross-shard member pairs would be missed) — multi-device callers use
     exact_accel_ref semantics via an all-gather, or keep pmx
-    single-chip; the engine enforces this.
+    single-device; the engine enforces this.
     """
     if psum_axis is not None:
         raise NotImplementedError(
-            "pmx fast path is single-device (shard-local compaction "
+            "pmx compact path is single-device (shard-local compaction "
             "would miss cross-shard member pairs)")
     n = pos_flat.shape[1]
     B = min(cfgx.capacity, n)
@@ -152,18 +163,12 @@ def exact_accel(pos_flat: jax.Array, live: jax.Array, cfgx: PMXConfig,
     m_buf = in_budget.astype(jnp.float32)
     if masses is not None:
         m_buf = m_buf * s[5][:B]
-    a_x = pairwise_pallas.pairwise_accel(
-        buf.T, buf, B, 1.0, cfgx.softening, masses=m_buf,
-        interpret=interpret)
-    a_p = pairwise_pallas.pairwise_accel(
-        buf.T, buf, B, 1.0, eps_prev, masses=m_buf, interpret=interpret)
-    corr_buf = (a_x - a_p).T * in_budget[None].astype(jnp.float32)
-    corr_full = jnp.concatenate(
-        [corr_buf, jnp.zeros((3, n - B), jnp.float32)], axis=1)
-    # un-sort by the carried index (one 4-operand sort, no serial scatter)
-    _, cx, cy, cz = jax.lax.sort(
-        (idx_s, corr_full[0], corr_full[1], corr_full[2]), num_keys=1)
-    return jnp.stack([cx, cy, cz]), n_m
+    accel = pair_accel(use_kernel, interpret)
+    a_x = accel(buf, buf, B, 1.0, cfgx.softening, masses=m_buf)
+    a_p = accel(buf, buf, B, 1.0, eps_prev, masses=m_buf)
+    corr_buf = (a_x - a_p) * in_budget[None].astype(jnp.float32)
+    corr = jnp.zeros((3, n), jnp.float32).at[:, idx_s[:B]].set(corr_buf)
+    return corr, n_m
 
 
 def _eps_prev(cfg: "P.PMConfig", levels) -> float:
@@ -188,22 +193,22 @@ def _validate(cfg: "P.PMConfig", levels, cfgx: PMXConfig) -> None:
 
 def pmx_accel(pos_flat: jax.Array, n_active, g_const, cfg: "P.PMConfig",
               levels, cfgx: PMXConfig, *, masses=None, kernels=None,
-              base_kernels=None, use_fast: bool = True,
+              base_kernels=None, use_kernel: bool = False,
               interpret: bool = False) -> Tuple[jax.Array, jax.Array]:
     """(acc f32[3, N], n_members) — full stack: coarse PM + the pm2
     refinement levels (possibly empty) + the window-exact correction.
     ``levels`` is () or a tuple of PM2Config (outermost first);
-    ``kernels`` = pm2.levels_kernels(cfg, levels) when non-empty."""
+    ``kernels`` = pm2.levels_kernels(cfg, levels) when non-empty.
+    ``use_kernel`` runs the window's all-pairs passes on the Triton
+    kernel (``interpret`` runs it in the Pallas interpreter)."""
     levels = tuple(levels) if levels else ()
     _validate(cfg, levels, cfgx)
     n = pos_flat.shape[1]
     live = jnp.arange(n, dtype=jnp.int32) < n_active
     if levels:
-        base = (pm2.pmn_accel if use_fast else pm2.pmn_accel_ref)
-        kw = ({"interpret": interpret, "base_kernels": base_kernels}
-              if use_fast else {})
-        acc = base(pos_flat, n_active, 1.0, cfg, levels, masses=masses,
-                   kernels=kernels, **kw)
+        acc = pm2.pmn_accel_ref(pos_flat, n_active, 1.0, cfg, levels,
+                                masses=masses, kernels=kernels,
+                                base_kernels=base_kernels)
         wmins = pm2._nested_wmins(pos_flat, live, cfg, levels, masses)
         # the exact window tracks the innermost mesh level's members
         lv_live = (pm2._in_window(pos_flat, wmins[-1],
@@ -216,44 +221,33 @@ def pmx_accel(pos_flat: jax.Array, n_active, g_const, cfg: "P.PMConfig",
                                     - levels[-1].margin
                                     - cfgx.window_size))
     else:
-        if use_fast and _fast_ok(cfg):
-            from . import pm_pallas
-            acc = pm_pallas.pm_accel(pos_flat, n_active, 1.0, cfg,
-                                     base_kernels=base_kernels,
-                                     masses=masses, interpret=interpret)
-        else:
-            acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
-                                  cfg, masses=masses)
+        acc = pm.pm_accel_ref(pos_flat, n_active, 1.0, cfg.softening,
+                              cfg, masses=masses, kernels=base_kernels)
         wmin = pm2.window_min(pos_flat, None, cfgx, masses, live=live)
     ep = _eps_prev(cfg, levels)
-    # the exact correction always runs the compact-buffer kernel path
-    # (exact_accel_ref's [3, N, N] broadcast is a small-N test oracle
-    # only); off-TPU callers get interpret mode
+    # the exact correction always runs the compact-buffer path
+    # (exact_accel_ref's [3, N, N] broadcast is a small-N test oracle)
     corr, n_m = exact_accel(pos_flat, live, cfgx, ep, masses=masses,
-                            wmin=wmin,
-                            interpret=interpret or not use_fast)
+                            wmin=wmin, use_kernel=use_kernel,
+                            interpret=interpret)
     acc = acc + corr
     return g_const * pm.momentum_clean(acc, n_active, masses), n_m
-
-
-def _fast_ok(cfg: "P.PMConfig") -> bool:
-    from . import pm_pallas
-    return cfg.grid in pm_pallas.SUPPORTED_GRIDS
 
 
 def step_pmx(pos: jax.Array, vel: jax.Array, param_vec: jax.Array,
              pair_vec: jax.Array, n_active, cfg: "P.PMConfig", levels,
              cfgx: PMXConfig, *, masses=None, kernels=None,
-             base_kernels=None, use_fast: bool = True,
+             base_kernels=None, use_kernel: bool = False,
              interpret: bool = False
              ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """One frame: mesh stack + window-exact correction + the reference
-    kick/step contract — same plane contract as pm_pallas.step_pm, plus
+    kick/step contract — same plane contract as pm.step_pm_ref, plus
     the window member count as a third output so the engine can surface
-    capacity truncation (ADVICE r4: a count nobody reads isn't loud)."""
+    capacity truncation (a count nobody reads is not loud)."""
     flat = pos.reshape(3, -1)
     acc, n_m = pmx_accel(flat, n_active, pair_vec[0], cfg, levels, cfgx,
-                         masses=masses, kernels=kernels, use_fast=use_fast,
+                         masses=masses, kernels=kernels,
+                         use_kernel=use_kernel,
                          base_kernels=base_kernels, interpret=interpret)
     pos2, vel2 = physics.kick_and_step_planes(
         pos, vel, acc.reshape(pos.shape), param_vec)
@@ -261,11 +255,11 @@ def step_pmx(pos: jax.Array, vel: jax.Array, param_vec: jax.Array,
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "cfg", "levels", "cfgx", "use_fast", "interpret"))
+    "cfg", "levels", "cfgx", "use_kernel", "interpret"))
 def step_pmx_jit(pos, vel, param_vec, pair_vec, n_active, cfg, levels,
-                 cfgx, use_fast: bool = True, interpret: bool = False,
+                 cfgx, use_kernel: bool = False, interpret: bool = False,
                  masses=None, kernels=None, base_kernels=None):
     return step_pmx(pos, vel, param_vec, pair_vec, n_active, cfg, levels,
                     cfgx, masses=masses, kernels=kernels,
                     base_kernels=base_kernels,
-                    use_fast=use_fast, interpret=interpret)
+                    use_kernel=use_kernel, interpret=interpret)

@@ -3,13 +3,15 @@
 The analog of the reference's CPU (rayon) backend
 (``/root/reference/src/simulation/cpu.rs:39-121``): same math, vectorized
 over SoA planes instead of ``par_iter_mut`` over AoS structs. Serves as the
-parity oracle for the fused Pallas kernel (BASELINE.json config 1) —
-mirroring the reference's own implicit CPU-vs-compute-shader A/B oracle.
+parity oracle for the fused kernel (ops/step_pallas.py) — mirroring the
+reference's own implicit CPU-vs-compute-shader A/B oracle — and is the
+interactive frame's stepper on every backend (engine.select_paths).
 
 All parameters arrive as one traced float32 vector (see core/params.py), so
 live parameter edits never recompile. State planes are donated by callers
-(engine layer) for in-place HBM double-buffering — the TPU equivalent of the
-reference's persistent STORAGE buffer (``compute.rs:28-34``).
+(engine layer) for in-place double-buffering in device memory — the
+equivalent of the reference's persistent STORAGE buffer
+(``compute.rs:28-34``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Data-parallel (particle-sharded) stepping via shard_map.
 
-TPU-native replacement for the reference's only scaling mechanism — more GPU
+The multi-device form of the reference's only scaling mechanism — more GPU
 threads (``compute.rs:141-143``): state planes are row-sharded over the
-``dp`` mesh axis and every chip steps its shard with the same fused kernel.
+``dp`` mesh axis and every device steps its shard with the same stepper.
 The attractor force is per-particle independent, so the step body contains no
 collectives; ``global_mean_speed`` shows the psum-based diagnostics pattern
 (the analog of the reference's stats UI readouts, ``app.rs:325-330``).
@@ -26,16 +26,17 @@ def _plane_spec() -> P:
     return P(None, DP_AXIS, None)
 
 
-def make_sharded_step(mesh: Mesh, *, use_pallas: bool, substeps: int = 1,
+def make_sharded_step(mesh: Mesh, *, use_kernel: bool, substeps: int = 1,
                       interpret: bool = False):
     """Returns jitted (pos, vel, param_vec) -> (pos, vel), row-sharded.
 
     Inside shard_map each device sees its local (3, R/n_dev, LANE) shard and
-    runs the plain single-chip stepper on it — zero communication.
+    runs the single-device stepper on it — zero communication.
+    ``use_kernel`` runs the fused kernel (ops/step_pallas.py).
     """
 
     def local_step(pos, vel, pv):
-        if use_pallas:
+        if use_kernel:
             return step_pallas.step(pos, vel, pv, substeps=substeps,
                                     interpret=interpret)
         if substeps == 1:
@@ -47,13 +48,13 @@ def make_sharded_step(mesh: Mesh, *, use_pallas: bool, substeps: int = 1,
     # check_vma must stay off for Pallas bodies: pallas_call kernels fail
     # vma propagation on literal operands ("Primitive mul requires varying
     # manual axes to match"; JAX 0.9 suggests check_vma=False as the
-    # workaround). The jnp path keeps the full varying-manual-axes check.
+    # workaround). The XLA path keeps the full varying-manual-axes check.
     sharded = shard_map(
         local_step,
         mesh=mesh,
         in_specs=(_plane_spec(), _plane_spec(), P()),
         out_specs=(_plane_spec(), _plane_spec()),
-        check_vma=not use_pallas,
+        check_vma=not use_kernel,
     )
     return jax.jit(sharded, donate_argnums=(0, 1))
 

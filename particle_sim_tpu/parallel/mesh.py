@@ -4,7 +4,7 @@ The reference is single-process/single-GPU (SURVEY.md §2 "Parallelism
 strategies"); scale-out is defined by this build, not ported: particles are
 sharded over a 1-D mesh axis ``"dp"`` via ``jax.sharding``. The attractor
 workload needs zero communication (force depends only on own state + the
-broadcast params), so stepping scales linearly over ICI-connected chips; the
+broadcast params), so stepping scales linearly over the devices; the
 all-pairs extension adds a ppermute ring (parallel/ring.py).
 """
 

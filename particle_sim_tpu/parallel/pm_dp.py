@@ -1,22 +1,21 @@
-"""Multi-chip particle-mesh stepping: local deposit -> psum(grid) -> solve.
+"""Multi-device particle-mesh stepping: local deposit -> psum(grid) -> solve.
 
 PM parallelizes differently from the ppermute ring (parallel/ring.py): the
 coupling between shards is entirely through the G^3 mass grid, so one
-``psum`` of the 8 MB grid over ICI replaces the ring's n_dev-1 position
-rotations. Per step, per device:
+``psum`` of the 8 MB grid over the device interconnect replaces the
+ring's n_dev-1 position rotations. Per step, per device:
 
   1. CIC-deposit the local particle shard onto a full local grid
      (zero-communication: the grid is dense, every shard can reach every
      cell);
   2. ``lax.psum`` the mass grids over the dp axis — the ONLY collective;
-  3. solve the FFT Poisson convolution redundantly on every chip
-     (replicated compute beats sharded FFTs at G=128: 8 MB of ICI traffic
-     vs an all-to-all transpose inside every transform);
+  3. solve the FFT Poisson convolution redundantly on every device
+     (replicated compute instead of sharded FFTs at G=128: 8 MB of grid
+     traffic vs an all-to-all transpose inside every transform);
   4. CIC-gather accelerations for the local shard only.
 
-Communication volume is O(G^3), independent of N — at 16M particles over 8
-chips that is 8 MB/step against 2M particle-updates/chip, firmly
-compute-bound.
+Communication volume is O(G^3), independent of N — at 16M particles over 4
+devices that is 8 MB/step against 4M particle-updates per device.
 
 Global padding is masked by translating the global ``n_active`` into each
 shard's local count (shards hold contiguous flat index ranges, so
@@ -32,7 +31,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..core import params as Pm
-from ..ops import physics, pm, pm_pallas
+from ..ops import physics, pm
 from .mesh import DP_AXIS
 
 
@@ -40,21 +39,18 @@ def _plane_spec() -> P:
     return P(None, DP_AXIS, None)
 
 
-def make_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *, use_pallas: bool = False,
-                 interpret: bool = False, with_masses: bool = False,
-                 with_base_kernels: bool = False):
+def make_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *,
+                 with_masses: bool = False, with_base_kernels: bool = False):
     """Jitted (pos, vel, param_vec, pair_vec, n_active[, masses]
     [, base_kernels]) -> (pos, vel).
 
     pos/vel are (3, R, LANE) planes row-sharded over dp; n_active is the
-    GLOBAL active count (replicated scalar). ``use_pallas`` selects the
-    sorted-kernel CIC path (TPU) over the XLA scatter/gather reference.
-    With ``with_masses``, a row-sharded f32[capacity] source-mass array
-    scales the local deposits (the grid psum makes it global). With
-    ``with_base_kernels`` (static-box only), one more trailing argument
-    carries the replicated pm.base_kernels_device pairs so the Hockney
-    spectra ride as runtime arguments, not program constants.
-    """
+    GLOBAL active count (replicated scalar). With ``with_masses``, a
+    row-sharded f32[capacity] source-mass array scales the local deposits
+    (the grid psum makes it global). With ``with_base_kernels`` (static-box
+    only), one more trailing argument carries the replicated
+    pm.base_kernels_device pairs so the Hockney spectra ride as runtime
+    arguments, not program constants."""
     if with_base_kernels and cfg.auto_box:
         raise ValueError("base kernels are for static-box configs (the "
                          "auto_box solve is in traced cell units)")
@@ -88,32 +84,16 @@ def make_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *, use_pallas: bool = False,
             g_scale = pairv[0] / (cell * cell)
             cell_size = 1.0
 
-        if use_pallas:
-            key_s, idx_s, frac_s, mass_s = pm_pallas.pm_sort(
-                flat, local_active, cfg, coords=coords, masses=masses)
-            rho = pm_pallas.pm_deposit_sorted(key_s, frac_s, mass_s,
-                                              interpret=interpret,
-                                              grid=cfg.grid)
-            rho = jax.lax.psum(rho, DP_AXIS)
-            grids = pm.solve_accel(rho, cfg, cfg.softening,
-                                   cell_size=cell_size,
-                                   kernels=base_kernels)
-            acc = g_scale * pm_pallas.pm_gather_sorted(
-                grids, key_s, frac_s, idx_s, interpret=interpret,
-                grid=cfg.grid)
-        else:
-            rho = pm.cic_deposit_ref(flat, local_active, cfg, coords=coords,
-                                     masses=masses)
-            rho = jax.lax.psum(rho, DP_AXIS)
-            grids = pm.solve_accel(rho, cfg, cfg.softening,
-                                   cell_size=cell_size,
-                                   kernels=base_kernels)
-            acc = g_scale * pm.cic_gather_ref(grids, flat, cfg,
-                                              coords=coords)
+        rho = pm.cic_deposit_ref(flat, local_active, cfg, coords=coords,
+                                 masses=masses)
+        rho = jax.lax.psum(rho, DP_AXIS)
+        grids = pm.solve_accel(rho, cfg, cfg.softening,
+                               cell_size=cell_size, kernels=base_kernels)
+        acc = g_scale * pm.cic_gather_ref(grids, flat, cfg, coords=coords)
 
         # global momentum clean (pm.momentum_clean with a psum'd mean):
-        # removes the solver's net-force bias (TPU FFT rfft-axis rounding)
-        # and zeroes clamp-gathered padding in one pass
+        # removes the solver's net-force bias and zeroes clamp-gathered
+        # padding in one pass
         live = (jnp.arange(local_n, dtype=jnp.int32)
                 < local_active).astype(jnp.float32)
         w = live if masses is None else live * masses
@@ -129,8 +109,6 @@ def make_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *, use_pallas: bool = False,
         return physics.kick_and_step_planes(pos, vel, acc.reshape(shape),
                                             pv)
 
-    # check_vma off only for Pallas bodies (kernel vma propagation fails on
-    # literal operands in JAX 0.9 — see parallel/dp.py for the citation)
     def wrapper(pos, vel, pv, pairv, n, *rest):
         masses = rest[0] if with_masses else None
         bk = rest[-1] if with_base_kernels else None
@@ -143,6 +121,5 @@ def make_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *, use_pallas: bool = False,
         + ((P(DP_AXIS),) if with_masses else ())
         + ((P(),) if with_base_kernels else ()),
         out_specs=(_plane_spec(), _plane_spec()),
-        check_vma=not use_pallas,
     )
     return jax.jit(sharded, donate_argnums=(0, 1))

@@ -1,8 +1,8 @@
-"""Multi-chip persistent-sorted particle-mesh stepping.
+"""Multi-device persistent cell-ordered particle-mesh stepping.
 
 The composition of parallel/pm_dp.py's communication pattern (shards
 couple ONLY through one psum of the mass grid; the FFT solve is computed
-redundantly per chip; gathers are local) with ops/pm_persist.py's
+redundantly per device; gathers are local) with ops/pm_persist.py's
 sort-free steady-state frames: each shard keeps ITS OWN locally
 cell-sorted slice of the particles, with GLOBAL identity riding in
 ``ids``. Particles never migrate between shards — locality of the
@@ -24,7 +24,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..core import params as Pm
-from ..ops import pm_pallas, pm_persist
+from ..ops import pm_persist
 from .mesh import DP_AXIS
 
 
@@ -51,7 +51,7 @@ def make_persist_init(mesh: Mesh, cfg: "Pm.PMConfig", *,
         local_n = pos.shape[1]
         base = jax.lax.axis_index(DP_AXIS) * local_n
         ids = base + jnp.arange(local_n, dtype=jnp.int32)
-        key, _ = pm_pallas.cell_key_frac(pos, ids < n_active, cfg)
+        key = pm_persist.cell_key(pos, ids < n_active, cfg)
         fb_shape = (1, n_levels) if n_levels else (1,)
         st = pm_persist._sort_state(key, pos, vel, ids, masses,
                                     jnp.zeros((1,), jnp.int32),
@@ -69,12 +69,13 @@ def make_persist_init(mesh: Mesh, cfg: "Pm.PMConfig", *,
         in_specs=(_flat_spec(), _flat_spec(), P()) + extra_in,
         out_specs=(_flat_spec(), _flat_spec(), P(DP_AXIS), P(DP_AXIS),
                    P(DP_AXIS)) + extra_out,
-        check_vma=False,  # cell_key_frac mixes literal iotas into varying
+        check_vma=False,  # cell_key mixes literal iotas into varying
     ))                    # data (see parallel/dp.py for the JAX 0.9 note)
 
 
 def make_persist_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *,
-                         interpret: bool = False, chunk: int = 0,
+                         use_kernel: bool = False, interpret: bool = False,
+                         chunk: int = 0,
                          with_masses: bool = False, with_col: bool = False,
                          cfg2=None, cfgx=None, two_tier: bool = True,
                          with_base_kernels: bool = False):
@@ -95,15 +96,16 @@ def make_persist_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *,
     terminates the stack with the window-exact correction — each shard
     contributes capacity/n_dev slots of its innermost class to one
     all_gather'd global member buffer (accel_sorted_multi docstring);
-    the output gains a replicated i32[2] (n_members, n_corrected).
+    the output gains a replicated i32[2] (n_members, n_corrected);
+    ``use_kernel`` runs its all-pairs passes on the Triton kernel.
     ``two_tier=False`` forces every per-shard repair straight to the
     full local sort (see pm_persist.accel_sorted).
     ``with_base_kernels=True`` appends one more trailing argument — the
     replicated pm.base_kernels_device(...) pairs — routing the coarse
     Hockney kernels in as runtime arguments instead of baked program
-    constants (mandatory at G=256: pm.base_kernels_device docstring)."""
+    constants (pm.base_kernels_device docstring)."""
     if cfgx is not None and not isinstance(cfg2, tuple):
-        raise ValueError("multi-chip pmx rides the MULTI-level class "
+        raise ValueError("multi-device pmx rides the MULTI-level class "
                          "order — pass a tuple cfg2")
     n_dev = int(mesh.devices.size)
 
@@ -117,6 +119,7 @@ def make_persist_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *,
         st = pm_persist.SortedPMState(pos, vel, ids, masses, resorts[0],
                                       fine_b[0], col24)
         out = pm_persist.step_sorted(st, pv, pairv, n_active, cfg,
+                                     use_kernel=use_kernel,
                                      interpret=interpret, chunk=chunk,
                                      psum_axis=DP_AXIS, cfg2=cfg2,
                                      kernels=kernels,
@@ -139,6 +142,6 @@ def make_persist_pm_step(mesh: Mesh, cfg: "Pm.PMConfig", *,
                   P(DP_AXIS), P(), P(), P()) + extra + ker_in,
         out_specs=(_flat_spec(), _flat_spec(), P(DP_AXIS), P(DP_AXIS),
                    P(DP_AXIS)) + extra + counts_out,
-        check_vma=False,  # Pallas kernel bodies (see parallel/dp.py)
+        check_vma=False,  # cell_key iotas / Pallas bodies (parallel/dp.py)
     )
     return jax.jit(sharded, donate_argnums=(0, 1))

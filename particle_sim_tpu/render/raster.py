@@ -12,9 +12,10 @@ Replicates the semantics of the reference's wgpu point-list pipeline
 Deviation (documented spec decision): the reference uses non-premultiplied
 ALPHA_BLENDING whose result depends on draw order, which is *undefined* for
 unsorted points without depth — i.e. the reference's own image is
-nondeterministic. We define the TPU-native blend as commutative premultiplied
-additive accumulation clamped to 1: order-independent, deterministic, and a
-scatter-add — the only blend that parallelizes on TPU without a sort. Colors
+nondeterministic. We define the blend as commutative premultiplied additive
+accumulation clamped to 1: order-independent (up to the order of float
+additions, which atomic adds do not fix) and a plain scatter-add, so it
+parallelizes without a sort and composes across devices by summation. Colors
 are computed on the fly from (pos, vel, init_color, params) via the shared
 color module (see core/state.py for why color is not stored).
 """
@@ -89,8 +90,12 @@ def render(
     width: int = 1920,
     height: int = 1080,
     background: float = 0.0,
+    clip: bool = True,
 ) -> jax.Array:
-    """f32[height, width, 3] framebuffer in [0, 1]. Traceable."""
+    """f32[height, width, 3] framebuffer in [0, 1]. Traceable. Planes may
+    be (3, R, LANE) or flat (3, N). ``clip=False`` leaves the sum
+    unclipped, for partial framebuffers that are summed across devices
+    before the clip (parallel/render_dp.py)."""
     flat_pos = pos.reshape(3, -1)
     flat_vel = vel.reshape(3, -1)
     flat_col = init_color.reshape(3, -1)
@@ -105,7 +110,7 @@ def render(
     rgb = jnp.stack([r, g, b], axis=1) * (bright * weight)[:, None]  # [N, 3]
     fb = jnp.full((height, width, 3), background, dtype=jnp.float32)
     fb = fb.at[py, px].add(rgb, mode="drop")
-    return jnp.clip(fb, 0.0, 1.0)
+    return jnp.clip(fb, 0.0, 1.0) if clip else fb
 
 
 @functools.partial(jax.jit, static_argnames=("width", "height"))
@@ -135,7 +140,7 @@ def pack_points_jit(pos, vel, init_color, param_vec, n_stop, stride: int = 1):
     """Device-side stream packing: -> (pos f32[3, m], rgba8 u8[m, 4]).
 
     Inactive slots get alpha 0 (clients discard); stride subsamples on
-    device so only the subsample crosses the PCI/host boundary.
+    device so only the subsample crosses to the host.
     """
     return _pack_points(pos, vel, init_color, param_vec,
                         jnp.asarray(n_stop, jnp.int32), stride=stride)

@@ -1,32 +1,39 @@
 """Persistent XLA compilation cache.
 
-The sorted rasterizer and the variadic 1M-element sort cost minutes of
-Mosaic/XLA compile time on first use (see README perf notes). Enabling
-JAX's persistent compilation cache makes that a once-per-machine cost:
-subsequent processes load the compiled executable from disk.
+The PM solve, the kernels and the rasterizer cost seconds to minutes of
+compile time on first use. JAX's persistent compilation cache makes that a
+once-per-checkout cost: later processes load the compiled executable from
+disk. Every entry point (cli, server, bench, chip_smoke) calls ``enable``.
 
-Called by every entry point (cli, server, bench); opt out with
-``PSIM_NO_COMPILE_CACHE=1`` or override the location with
-``PSIM_COMPILE_CACHE_DIR``.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its cache
+there and nothing here changes that. Otherwise the cache lives at a fixed
+path inside the checkout (``<repo>/.jax_cache``, listed in .gitignore): a
+fixed path, because the path is part of every cache key and a directory
+that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "particle_sim_tpu", "xla")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable(cache_dir: str | None = None) -> str | None:
-    """Enable the persistent compile cache; returns the dir (None if off)."""
-    if os.environ.get("PSIM_NO_COMPILE_CACHE"):
-        return None
+def cache_dir() -> str:
+    """The directory the persistent cache uses."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
+
+
+def enable() -> str:
+    """Enable the persistent compile cache; returns its directory."""
     import jax
 
-    path = (cache_dir or os.environ.get("PSIM_COMPILE_CACHE_DIR")
-            or _DEFAULT_DIR)
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
     return path

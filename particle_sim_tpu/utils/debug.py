@@ -3,7 +3,7 @@
 The reference's safety story is Rust's type system plus kernels that are
 race-free by construction (one invocation per particle); it explicitly
 disables GPU-side runtime checks in release (``app.rs:127-132``,
-``compute.rs:45-50``). The TPU analog of "debug build checks":
+``compute.rs:45-50``). The analog of "debug build checks" here:
 
   * ``validate_state`` — device-side finiteness/bounds reduction over the
     state planes, raised to the host as an exception with which plane failed.

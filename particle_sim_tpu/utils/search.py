@@ -1,9 +1,8 @@
 """Vectorized binary search via gathers.
 
-``jnp.searchsorted`` lowers poorly on TPU (per-probe while loops); this
-fixed-iteration bisection is a handful of fused gathers. Shared by the
-sorted-deposit rasterizer (render/raster_sorted.py) and the particle-mesh
-chunk tables (ops/pm_pallas.py).
+A fixed-iteration bisection: a handful of fused gathers with a static trip
+count, where ``jnp.searchsorted`` lowers to per-probe loops. Used by the
+persistent PM order's disorder measure (ops/pm_persist.py _hull).
 """
 
 from __future__ import annotations
@@ -36,15 +35,3 @@ def bin_search(sorted_arr: jax.Array, probes: jax.Array, side_right: bool,
         hi = jnp.where(go_right, hi, mid)
     return lo
 
-
-def rank_right_iota(base: jax.Array, c_max: int) -> jax.Array:
-    """i32[c_max] with out[kk] = searchsorted(base, kk, side='right') - 1
-    for the IMPLICIT probes kk = 0..c_max-1 — the pair-table expansion's
-    inner rank. For iota probes the bisection is beatable: ONE
-    scatter-add of len(base) marks plus ONE cumsum replaces ~10-17
-    gather rounds over c_max entries (the dominant cost of the table
-    build at 16M). ``base`` must be non-negative; entries >= c_max are
-    dropped (they can never be <= any probe)."""
-    marks = jnp.zeros((c_max,), jnp.int32).at[base].add(
-        1, mode="drop", indices_are_sorted=True)
-    return jnp.cumsum(marks) - 1

@@ -106,7 +106,7 @@ class TestMethodSwitch:
     def test_unavailable_method_raises(self):
         e = make_engine()
         import jax
-        if jax.default_backend() != "tpu":
+        if jax.default_backend() != "gpu":
             with pytest.raises(ValueError):
                 e.set_method(Method.PALLAS)
 

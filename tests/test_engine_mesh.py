@@ -1,4 +1,4 @@
-"""Multi-chip Engine mode on the virtual 8-device mesh."""
+"""Multi-device Engine mode on the virtual 8-device mesh."""
 
 import numpy as np
 import pytest
@@ -94,18 +94,17 @@ def test_mesh_render_and_stream():
                mesh=mesh)
     p = psim.SimParams(color_mode=1, gravity=1.0)
     e.step(p)
-    img = e.render_frame(Camera(aspect=16 / 9), p, width=1280, height=720,
-                         renderer="scatter")
+    img = e.render_frame(Camera(aspect=16 / 9), p, width=1280, height=720)
     assert img.shape == (720, 1280, 4) and (img[..., :3] > 0).any()
     pos, rgba = e.frame_arrays(p, max_points=500)
     assert pos.shape[0] == 3 and rgba.shape[1] == 4
 
 
 def test_mesh_render_psum_composite():
-    """Multi-chip sorted rendering: each shard rasterizes its rows and
-    ONE framebuffer psum composites (parallel/render_dp.py) — no
-    particle gather. Must match the single-device render within the
-    additive blend's fp/bf16 tolerance."""
+    """Multi-device rendering: each shard rasterizes its rows and ONE
+    framebuffer psum composites (parallel/render_dp.py) — no particle
+    gather. Must match the single-device render within the additive
+    blend's summation-order tolerance."""
     import particle_sim_tpu as psim
     from particle_sim_tpu.render.camera import Camera
 
@@ -119,8 +118,7 @@ def test_mesh_render_psum_composite():
         sharded.step(p)
     cam = Camera(aspect=2.0)
     img_s = sharded.render_frame(cam, p, width=256, height=128)
-    img_1 = single.render_frame(cam, p, width=256, height=128,
-                                renderer="compact")
+    img_1 = single.render_frame(cam, p, width=256, height=128)
     assert (img_s[..., :3] > 0).any()
     assert abs(img_s.astype(int) - img_1.astype(int)).max() <= 2
 
@@ -129,7 +127,7 @@ def test_mesh_render_psum_composite():
 def test_mesh_persist_render_from_carry():
     """Persist + mesh: the frame renders from the SHARDED sorted carry
     (positions + carried col24) without rebuilding identity order, and
-    matches the identity-order scatter render."""
+    matches the render of the rebuilt identity-order planes."""
     import particle_sim_tpu as psim
     from particle_sim_tpu.core.params import PMConfig
     from particle_sim_tpu.render.camera import Camera
@@ -146,8 +144,8 @@ def test_mesh_persist_render_from_carry():
     cam = Camera(aspect=2.0)
     img = e.render_frame(cam, p, width=256, height=128)
     assert e._identity_dirty            # no identity rebuild was paid
-    img_ref = e.render_frame(cam, p, width=256, height=128,
-                             renderer="scatter")
-    assert not e._identity_dirty        # the scatter path rebuilds
+    e.ensure_identity_order()
+    img_ref = e.render_frame(cam, p, width=256, height=128)
+    assert not e._identity_dirty
     assert (img[..., :3] > 0).any()
     assert abs(img.astype(int) - img_ref.astype(int)).max() <= 3

@@ -1,6 +1,6 @@
-"""Engine integration of the persistent-sorted PM mode: outputs stay in
-identity order, lifecycle mutations invalidate the sorted mirror, and
-the trajectory matches the per-frame-sorted engine."""
+"""Engine integration of the persistent cell-ordered PM mode: outputs stay
+in identity order, lifecycle mutations invalidate the sorted mirror, and
+the trajectory matches the per-frame engine."""
 
 import numpy as np
 import pytest
@@ -37,8 +37,8 @@ def test_trajectory_matches_sorted_path():
     # motion magnitude itself
     moved = np.abs(p_ref - p0).max()
     assert moved > 0.0
-    # same kernels; persist skips the un-sort 40-bit pack quantization,
-    # which bounds the divergence per kick
+    # same deposit/solve/gather in another order: the scatter-add's
+    # summation order bounds the divergence per kick
     err = np.abs(p_per - p_ref).max()
     assert err < 5e-3
     assert err < 0.25 * moved
@@ -112,11 +112,31 @@ def test_checkpoint_roundtrip_identity(tmp_path):
                                e.state.positions(), atol=1e-6)
 
 
+@pytest.mark.parametrize("pm", [None, CFG])
+def test_checkpoint_with_retired_auto_mode_loads(tmp_path, pm):
+    """Checkpoints written while pm_persist had an "auto" mode (saved for
+    every engine, with or without PM) resume on the per-frame default."""
+    import json
+
+    from particle_sim_tpu.io import checkpoint as ckpt
+    path = str(tmp_path / "old.npz")
+    ckpt.save(path, Engine(particle_count=2000, method=Method.JNP, pm=pm))
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(str(arrays["meta"]))
+    meta["pm_persist"] = "auto"
+    arrays["meta"] = json.dumps(meta)
+    np.savez_compressed(path, **arrays)
+    e2, _ = ckpt.load(path)
+    assert e2.pm_persist is False and e2.pm == pm
+    assert not e2.persist_resolved()
+
+
 def test_two_tier_flag_plumbs(tmp_path):
-    """Engine(two_tier=False) — the full-sort-only repair strategy the
-    r5 A/B measured as the win for violent scenes — is carried on the
-    engine and rides checkpoints (no stepping: the repair-path physics
-    parity is the slow-tier test below)."""
+    """Engine(two_tier=False) — the full-sort-only repair strategy for
+    violent scenes — is carried on the engine and rides checkpoints (no
+    stepping: the repair-path physics parity is the slow-tier test
+    below)."""
     from particle_sim_tpu.io import checkpoint as ckpt
     e_full = _engine(True, two_tier=False)
     assert _engine(True).two_tier and not e_full.two_tier
@@ -141,28 +161,29 @@ def test_two_tier_false_matches_trajectory():
                                e_tt.state.positions(), atol=1e-5)
 
 
-def test_pm_persist_auto_crossover(monkeypatch):
-    """pm_persist="auto" (the default) resolves from the count — off
-    below the measured crossover, on above — and re-resolves on resize,
-    so a no-flags PM engine gets the best mode at every size."""
-    from particle_sim_tpu.engine import engine as eng_mod
-
+def test_pm_persist_default_is_per_frame():
+    """With no pm_persist, a PM engine runs the per-frame path at every
+    size (no count-based switch); pm_persist=True runs the persistent
+    order, and both agree on the trajectory."""
     e = Engine(particle_count=2000, method=Method.PALLAS, pm=CFG,
                interpret=True)
-    assert e.pm_persist == "auto"
-    assert not e.persist_resolved()          # 2000 << real crossover
-    e.step(PARAMS)
-    assert e._persist is None                # per-frame-sorted path ran
-    # shrink the crossover under the test size instead of allocating 4M
-    monkeypatch.setattr(eng_mod, "PERSIST_AUTO_MIN_N", 1500)
-    assert e.persist_resolved()
-    e.step(PARAMS)
-    assert e._persist is not None            # persistent path ran
-    e.resize(1024)                           # below the crossover again
+    assert e.pm_persist is False
     assert not e.persist_resolved()
-    e.step(PARAMS)
-    assert e._persist is None
-    assert bool(jnp.isfinite(e.state.pos).all())
+    e.resize(4096)
+    assert not e.persist_resolved()
+    e2 = Engine(particle_count=4096, method=Method.PALLAS, pm=CFG,
+                interpret=True, pm_persist=True)
+    st = e.state
+    e2.state = psim.ParticleState(pos=jnp.array(st.pos), vel=jnp.array(st.vel),
+                                  init_color=st.init_color,
+                                  n_active=st.n_active)
+    assert e2.persist_resolved()
+    for _ in range(2):
+        e.step(PARAMS)
+        e2.step(PARAMS)
+    assert e._persist is None and e2._persist is not None
+    np.testing.assert_allclose(e.state.positions(), e2.state.positions(),
+                               atol=1e-4)
 
 
 def test_rejects_bad_config():
@@ -197,10 +218,9 @@ def test_persist_with_mesh():
 
 
 @pytest.mark.slow
-def test_jnp_method_persist_runs_off_tpu():
+def test_jnp_method_persist_runs():
     """A Method.JNP engine with pm_persist (e.g. a checkpoint resumed on
-    a CPU box) must step: the Pallas-only persist path switches to
-    interpret mode off-TPU instead of crashing."""
+    a CPU box) must step: the persistent order runs on plain XLA."""
     from particle_sim_tpu.core.params import Method
 
     e = Engine(particle_count=900, method=Method.JNP, pm=CFG,
@@ -224,7 +244,7 @@ def test_cli_pm_persist_implies_pm(tmp_path):
 
 @pytest.mark.slow
 def test_persist_with_mesh_two_level():
-    """Multi-chip pm2 rides the persist path: engine(mesh, pm_persist,
+    """Multi-device pm2 rides the persist path: engine(mesh, pm_persist,
     pm2) steps and tracks the single-device two-level persist engine."""
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device platform")
@@ -247,8 +267,8 @@ def test_persist_with_mesh_two_level():
 
 
 def test_mesh_pm2_auto_promotes_persist():
-    """Multi-chip pm2 only exists on the persist path; an eligible
-    pm_persist="auto" config is auto-promoted to pm_persist=True
+    """Multi-device pm2 only exists on the persist path; an eligible
+    config with no pm_persist is promoted to pm_persist=True
     (engine.py pm2+mesh handling), while an INELIGIBLE config (auto_box,
     or an explicit pm_persist=False) still fails loudly."""
     if len(jax.devices()) < 2:
@@ -261,7 +281,7 @@ def test_mesh_pm2_auto_promotes_persist():
     mesh = mesh_lib.make_mesh()
     e = Engine(particle_count=2048, method=Method.PALLAS, pm=CFG,
                interpret=True, mesh=mesh, pm2=cfg2)
-    assert e.pm_persist is True          # auto → promoted
+    assert e.pm_persist is True          # unset → promoted
     assert e.persist_resolved()
     # ineligible coarse config (auto_box) cannot ride the persist path
     with pytest.raises(ValueError, match="persist|static box"):
@@ -298,7 +318,7 @@ def test_render_from_sorted_planes_skips_unsort():
     assert abs(img_fast.astype(int) - img_ref.astype(int)).max() <= 1
     # mode 0 (ORIGINAL — the reference default) pairs points with
     # init_color; the persist state carries it pre-paired as col24, so
-    # the DEFAULT config is ALSO sort-free (round-2 verdict item 1b).
+    # the DEFAULT config is ALSO sort-free.
     # Divergence budget: u8 col24 quantization (<=0.5/255 per point,
     # pre-brightness) on top of the additive blend.
     e2 = _engine(True)

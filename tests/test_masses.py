@@ -8,7 +8,7 @@ import pytest
 import particle_sim_tpu as psim
 from particle_sim_tpu.core.params import Method, PairwiseParams, PMConfig
 from particle_sim_tpu.engine import Engine
-from particle_sim_tpu.ops import pairwise, pairwise_pallas, pm, pm_pallas
+from particle_sim_tpu.ops import pairwise, pairwise_pallas, pm, pm_persist
 
 
 def _two_body(m_heavy=1000.0, dist=20.0):
@@ -42,8 +42,8 @@ def test_pallas_direct_matches_oracle_with_masses():
     a_oracle = np.asarray(pairwise.pairwise_accel(
         flat, st.n_active, 1.0, 0.5, masses=m_dev))
     a_fast = np.asarray(pairwise_pallas.pairwise_accel(
-        flat.T, flat, st.n_active, 1.0, 0.5, masses=m_dev,
-        interpret=True)).T
+        flat, flat, st.n_active, 1.0, 0.5, masses=m_dev,
+        interpret=True))
     np.testing.assert_allclose(a_fast[:, :1024], a_oracle[:, :1024],
                                rtol=2e-4, atol=1e-5)
 
@@ -68,8 +68,10 @@ def test_pm_heavy_center_matches_direct():
     cfg = PMConfig(softening=5.0)
     a_pm = np.asarray(pm.pm_accel_ref(flat, st.n_active, 1.0, cfg.softening,
                                       cfg, masses=m_dev))
-    a_fast = np.asarray(pm_pallas.pm_accel(flat, st.n_active, 1.0, cfg,
-                                           masses=m_dev, interpret=True))
+    ps, a_slot = pm_persist.accel_sorted(
+        pm_persist.init_sorted(flat, st.n_active, cfg, masses=m_dev), 1.0,
+        cfg, n_active=st.n_active)
+    a_fast = np.asarray(pm_persist.unsort(ps, (a_slot,))[0])
     a_direct = np.asarray(pairwise.pairwise_accel(
         flat, st.n_active, 1.0, cfg.softening, masses=m_dev))
     err = np.linalg.norm(a_pm[:, :n] - a_direct[:, :n], axis=0)
@@ -188,7 +190,7 @@ def test_mesh_masses_pm_and_ring_match_single_device():
         return np.asarray(x).reshape(3, -1)[:, :n]
 
     # PM with masses
-    step = pm_dp.make_pm_step(mesh, cfg, use_pallas=False, with_masses=True)
+    step = pm_dp.make_pm_step(mesh, cfg, with_masses=True)
     p_m, v_m = step(pos_sh, vel_sh, pv, pp, st.n_active, m_dev)
     p_r, v_r = pm.step_pm_ref(jnp.array(st.pos), jnp.array(st.vel), pv, pp,
                               st.n_active, cfg, masses=m_dev)
@@ -197,7 +199,7 @@ def test_mesh_masses_pm_and_ring_match_single_device():
 
     # ring with rotating masses
     pos_sh2, vel_sh2 = mesh_lib.shard_state_planes(mesh, st.pos, st.vel)
-    rstep = ring.make_ring_pairwise_step(mesh, use_pallas=False,
+    rstep = ring.make_ring_pairwise_step(mesh, use_kernel=False,
                                          with_masses=True)
     p_g, v_g = rstep(pos_sh2, vel_sh2, pv, pp, st.n_active, m_dev)
     p_o, v_o = pw.step_pairwise(jnp.array(st.pos), jnp.array(st.vel), pv,

@@ -1,4 +1,4 @@
-"""All-pairs force: oracle vs direct sum, Pallas kernel vs oracle, ring vs
+"""All-pairs force: oracle vs direct sum, Triton kernel vs oracle, ring vs
 single-device."""
 
 import numpy as np
@@ -12,8 +12,9 @@ from particle_sim_tpu.core.params import PairwiseParams, SimParams
 from particle_sim_tpu.core.state import ParticleState
 from particle_sim_tpu.ops import pairwise, pairwise_pallas
 from particle_sim_tpu.parallel import mesh as mesh_lib, ring
+from particle_sim_tpu.utils import parity
 
-INTERPRET = jax.default_backend() != "tpu"
+INTERPRET = jax.default_backend() != "gpu"
 GC, EPS = 2.5, 0.5
 
 
@@ -69,26 +70,34 @@ class TestOracle:
 
 
 class TestPallasKernel:
+    """ops/pairwise_pallas.py (Triton route; the interpreter on a CPU)."""
+
     @pytest.mark.parametrize("n", [1024, 4096])
     def test_matches_oracle(self, n):
         state = make_state(n)
         flat = state.pos.reshape(3, -1)
         expect = pairwise.pairwise_accel(flat, state.n_active, GC, EPS)
         got = pairwise_pallas.pairwise_accel(
-            flat.T, flat, state.n_active, GC, EPS,
-            tile_i=256, tile_j=256, interpret=INTERPRET)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(expect).T,
+            flat, flat, state.n_active, GC, EPS, interpret=INTERPRET)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
                                    rtol=2e-4, atol=1e-5)
 
-    def test_ragged_and_masked(self):
-        # 1500 active in 2048 capacity, tiles that don't divide evenly
-        state = make_state(1500)
-        flat = state.pos.reshape(3, -1)
-        expect = pairwise.pairwise_accel(flat, state.n_active, GC, EPS)
-        got = pairwise_pallas.pairwise_accel(
-            flat.T, flat, state.n_active, GC, EPS,
-            tile_i=256, tile_j=512, interpret=INTERPRET)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(expect).T,
+    @pytest.mark.parametrize("n_i,n_j,n_active", [
+        (1500, 1500, 1500),     # no multiple of either block
+        (2048, 2048, 1500),     # padded capacity, masked tail
+        (33, 129, 100),         # one partial block each way
+        (1, 300, 257),          # a single receiver
+    ])
+    def test_ragged_and_masked(self, n_i, n_j, n_active):
+        rng = np.random.default_rng(n_i + n_j)
+        xi = jnp.asarray(rng.normal(size=(3, n_i)).astype(np.float32) * 5)
+        xj = jnp.asarray(rng.normal(size=(3, n_j)).astype(np.float32) * 5)
+        got = pairwise_pallas.pairwise_accel(xi, xj, n_active, GC, EPS,
+                                             interpret=INTERPRET)
+        expect = pairwise.pairwise_accel_blocked(xi, xj, n_active, GC, EPS,
+                                                 tile=64)
+        assert got.shape == (3, n_i)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
                                    rtol=2e-4, atol=1e-5)
 
     def test_j_base_offset(self):
@@ -99,30 +108,31 @@ class TestPallasKernel:
         n = flat.shape[1]
         half = n // 2
         got = pairwise_pallas.pairwise_accel(
-            flat.T, flat[:, half:], state.n_active, GC, EPS,
-            j_base=half, tile_i=256, tile_j=256, interpret=INTERPRET)
+            flat, flat[:, half:], state.n_active, GC, EPS,
+            j_base=half, interpret=INTERPRET)
         # oracle: full minus first half (both j_base-masked by n_active)
         full = pairwise.pairwise_accel(flat, state.n_active, GC, EPS)
         first = pairwise_pallas.pairwise_accel(
-            flat.T, flat[:, :half], state.n_active, GC, EPS,
-            j_base=0, tile_i=256, tile_j=256, interpret=INTERPRET)
+            flat, flat[:, :half], state.n_active, GC, EPS,
+            j_base=0, interpret=INTERPRET)
         np.testing.assert_allclose(
-            np.asarray(got) + np.asarray(first), np.asarray(full).T,
+            np.asarray(got) + np.asarray(first), np.asarray(full),
             rtol=2e-4, atol=1e-4)
 
-    def test_mxu_variant_matches_loosely(self):
-        # MXU path trades ~2% near-field accuracy for MXU offload (see
-        # pairwise_pallas.py); verify it agrees to that documented tolerance.
-        state = make_state(2048)
-        flat = jnp.asarray(state.pos.reshape(3, -1))
-        expect = np.asarray(
-            pairwise.pairwise_accel(flat, state.n_active, GC, EPS))
-        got = np.asarray(pairwise_pallas.pairwise_accel_mxu(
-            flat, flat, state.n_active, GC, EPS,
-            tile_i=256, tile_j=512, interpret=INTERPRET))
-        n = int(state.n_active)
-        rel = np.abs(got[:, :n] - expect[:, :n]) / (np.abs(expect[:, :n]) + 1e-2)
-        assert rel.max() < 0.05
+    def test_source_masses(self):
+        # masses scale sources only; a mass-2 source equals two coincident
+        # unit sources
+        state = make_state(1000)
+        flat = state.pos.reshape(3, -1)
+        m = np.ones(flat.shape[1], np.float32)
+        m[:300] = 2.0
+        got = pairwise_pallas.pairwise_accel(
+            flat, flat, state.n_active, GC, EPS, masses=jnp.asarray(m),
+            interpret=INTERPRET)
+        expect = pairwise.pairwise_accel(flat, state.n_active, GC, EPS,
+                                         masses=jnp.asarray(m))
+        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
+                                   rtol=2e-4, atol=1e-5)
 
     def test_step_pairwise_matches_oracle_step(self):
         state = make_state(1024)
@@ -140,19 +150,28 @@ class TestPallasKernel:
         np.testing.assert_allclose(np.asarray(gv), np.asarray(ev),
                                    rtol=1e-4, atol=1e-5)
 
+    def test_parity_check_small(self):
+        # the chip_smoke parity function itself, at a CPU-sized width
+        r = parity.pairwise(2048, interpret=True)
+        assert r["ok"], r
 
-class TestTileSelection:
-    def test_tiles_always_divide(self):
-        # ragged j-blocks would feed uninitialized VMEM padding into the
-        # force reduction on hardware (interpret mode hides it by
-        # zero-filling) — tiles must divide the array exactly.
-        from particle_sim_tpu.ops.pairwise_pallas import _dividing_tile
-        for n in [1024, 5120, 65536, 1920, 128, 97, 3000]:
-            for pref in [2048, 1024, 512, 256]:
-                t = _dividing_tile(n, pref)
-                assert n % t == 0 and 1 <= t <= max(pref, 1)
-        assert _dividing_tile(5120, 2048) == 1024
-        assert _dividing_tile(65536, 2048) == 2048
+    @pytest.mark.gpu
+    def test_parity_on_card(self):
+        r = parity.pairwise(65_536)
+        assert r["ok"], r
+
+
+class TestBlockedReference:
+    @pytest.mark.parametrize("tile", [64, 100, 4096])
+    def test_blocked_matches_oracle(self, tile):
+        # the no-kernel all-pairs path: any tile, dividing or not
+        state = make_state(1500)
+        flat = state.pos.reshape(3, -1)
+        expect = pairwise.pairwise_accel(flat, state.n_active, GC, EPS)
+        got = pairwise.pairwise_accel_blocked(flat, flat, state.n_active,
+                                              GC, EPS, tile=tile)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
+                                   rtol=2e-4, atol=1e-5)
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multi-device")
@@ -167,7 +186,7 @@ class TestRing:
                                         state.n_active)
 
         step = ring.make_ring_pairwise_step(mesh, interpret=INTERPRET,
-                                            use_pallas=True)
+                                            use_kernel=True)
         pos_sh, vel_sh = mesh_lib.shard_state_planes(mesh, state.pos, state.vel)
         gp, gv = step(pos_sh, vel_sh, pv, pp, state.n_active)
         np.testing.assert_allclose(np.asarray(gp), np.asarray(ep),

@@ -1,11 +1,12 @@
-"""Persistent cell-sorted PM: parity, disorder tolerance, repair triggers.
+"""Persistent cell-ordered PM: parity, disorder measure, repair triggers.
 
-Oracle chain (SURVEY.md §4): accel_sorted must reproduce
-pm_pallas.pm_accel (itself parity-tested against pm.pm_accel_ref and the
-direct O(N^2) sum) with the acceleration permuted by the state's ids —
-in EVERY ordering regime: freshly sorted, drifted-but-within-budget
-(span tables absorb the disorder with zero repair), and scrambled past
-the budget (the lax.cond repair fires and must restore exactness).
+Oracle chain (SURVEY.md §4): accel_sorted must reproduce the per-frame
+pm.pm_accel_ref (itself parity-tested against the direct O(N^2) sum) with
+the acceleration permuted by the state's ids — in EVERY ordering regime:
+freshly sorted, drifted-but-within-budget (no repair), and scrambled past
+the budget (the lax.cond repair fires). The deposit and gather are the
+same XLA scatter/gather in any order, so the two agree to f32
+summation-order noise.
 """
 
 import jax
@@ -15,7 +16,7 @@ import pytest
 
 import particle_sim_tpu as psim
 from particle_sim_tpu.core.params import PMConfig
-from particle_sim_tpu.ops import physics, pm, pm_pallas, pm_persist
+from particle_sim_tpu.ops import physics, pm, pm_persist
 
 CFG = PMConfig(softening=4.0, gradient="exact", boundary="isolated")
 
@@ -36,18 +37,22 @@ def _flat(pos_nx3, capacity=None):
     return jnp.asarray(st.pos.reshape(3, -1)), st.n_active
 
 
-def _ref_accel(pos_flat, n_active):
-    return np.asarray(pm_pallas.pm_accel(
-        pos_flat, n_active, 1.0, CFG, interpret=True))
+ATOL_REL = 1e-5   # summation order of the scatter-add, nothing else
 
 
-def _assert_matches_ref(st, n_active, atol_rel=3e-3, **kw):
-    """accel_sorted == pm_accel up to slot permutation. Tolerance: the
-    reference path's un-sort quantizes accelerations through the 40-bit
-    shared-exponent pack (~2^-10 of each particle's dominant component);
-    accel_sorted never un-sorts, so it returns the UNquantized gather."""
+def _ref_accel(pos_flat, n_active, cfg=CFG, masses=None):
+    return np.asarray(pm.pm_accel_ref(pos_flat, n_active, 1.0,
+                                      cfg.softening, cfg, masses=masses))
+
+
+def _key(st, n_act, cfg=CFG):
+    return np.asarray(pm_persist.cell_key(st.pos, st.ids < n_act, cfg))
+
+
+def _assert_matches_ref(st, n_active, atol_rel=ATOL_REL, **kw):
+    """accel_sorted == pm_accel_ref up to slot permutation."""
     st2, acc = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_active,
-                                       interpret=True, **kw)
+                                       **kw)
     a_ref = _ref_accel(_ids_order(st2), n_active)
     ids = np.asarray(st2.ids)
     scale = np.abs(a_ref).max() + 1e-12
@@ -70,13 +75,12 @@ def test_parity_fresh_sort():
     # freshly sorted: keys are globally ordered, no repair can fire
     st2, _ = _assert_matches_ref(st, n_act)
     assert int(st2.resorts) == 0
-    assert np.all(np.diff(np.asarray(
-        pm_pallas.cell_key_frac(st2.pos, st2.ids < n_act, CFG)[0])) >= 0)
+    assert np.all(np.diff(_key(st2, n_act)) >= 0)
 
 
 def test_parity_drifted_no_repair():
-    """Small random drift: span tables must absorb the disorder without
-    a repair, and the result must stay exact."""
+    """Small random drift stays within the pair budgets: no repair, and
+    the result is exact."""
     pos, n_act = _flat(_cloud(2000, 1))
     st = pm_persist.init_sorted(pos, n_act, CFG)
     rng = np.random.default_rng(2)
@@ -111,20 +115,19 @@ def test_partial_active_padding_inert():
     poison = jnp.where(st.ids[None] < st0.n_active, st.pos,
                        jnp.float32(1.5))
     st = st._replace(pos=poison)
-    st2, acc = pm_persist.accel_sorted(st, 1.0, CFG, n_active=st0.n_active,
-                                       interpret=True)
+    st2, acc = pm_persist.accel_sorted(st, 1.0, CFG, n_active=st0.n_active)
     dead = np.asarray(st2.ids) >= 900
     assert np.all(np.asarray(acc)[:, dead] == 0.0)
     a_ref = _ref_accel(_ids_order(st2), st0.n_active)
     ids = np.asarray(st2.ids)
     scale = np.abs(a_ref).max() + 1e-12
     np.testing.assert_allclose(np.asarray(acc), a_ref[:, ids],
-                               atol=3e-3 * scale)
+                               atol=ATOL_REL * scale)
 
 
 @pytest.mark.slow
 def test_step_sorted_matches_step_pm():
-    """One integrated frame must equal pm_pallas.step_pm modulo the slot
+    """One integrated frame must equal pm.step_pm_ref modulo the slot
     permutation (identical accel + identical kick/step contract)."""
     n = 1024
     pos_np = _cloud(n, 6, radius=30.0)
@@ -137,22 +140,19 @@ def test_step_sorted_matches_step_pm():
     planes_p = jnp.asarray(stp.pos)
     planes_v = jnp.asarray(stp.vel)
 
-    p_ref, v_ref = pm_pallas.step_pm(planes_p, planes_v, pv, pairv,
-                                     stp.n_active, CFG, interpret=True)
+    p_ref, v_ref = pm.step_pm_ref(planes_p, planes_v, pv, pairv,
+                                  stp.n_active, CFG)
 
     st = pm_persist.init_sorted(planes_p.reshape(3, -1), stp.n_active, CFG,
                                 vel_flat=planes_v.reshape(3, -1))
-    st2 = pm_persist.step_sorted(st, pv, pairv, stp.n_active, CFG,
-                                 interpret=True)
+    st2 = pm_persist.step_sorted(st, pv, pairv, stp.n_active, CFG)
     ids = np.asarray(st2.ids)
     p_ref = np.asarray(p_ref).reshape(3, -1)
     v_ref = np.asarray(v_ref).reshape(3, -1)
-    # the ref frame's accel rode the 40-bit un-sort pack; one kick at
-    # dt=0.016 turns that ~2^-10-relative quantization into these bounds
     np.testing.assert_allclose(np.asarray(st2.pos), p_ref[:, ids],
-                               rtol=0, atol=1e-3)
+                               rtol=0, atol=1e-5)
     np.testing.assert_allclose(np.asarray(st2.vel), v_ref[:, ids],
-                               rtol=0, atol=5e-2)
+                               rtol=0, atol=1e-4)
 
 
 @pytest.mark.slow
@@ -166,21 +166,19 @@ def test_masses_ride_repairs():
         1024).astype(np.int32))
     st = st._replace(pos=st.pos[:, perm], vel=st.vel[:, perm],
                      ids=st.ids[perm], masses=st.masses[perm])
-    st2, acc = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_act,
-                                       interpret=True)
+    st2, acc = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_act)
     assert int(st2.resorts) == 1
     # masses still paired with their particles: sorted-by-ids masses
     # equal the originals
     ids = np.asarray(st2.ids)
     np.testing.assert_array_equal(
         np.asarray(st2.masses)[np.argsort(ids)], np.asarray(masses))
-    a_ref = np.asarray(pm_pallas.pm_accel(
-        _ids_order(st2), n_act, 1.0, CFG,
-        masses=jnp.asarray(np.asarray(st2.masses)[np.argsort(ids)]),
-        interpret=True))
+    a_ref = _ref_accel(
+        _ids_order(st2), n_act,
+        masses=jnp.asarray(np.asarray(st2.masses)[np.argsort(ids)]))
     scale = np.abs(a_ref).max() + 1e-12
     np.testing.assert_allclose(np.asarray(acc), a_ref[:, ids],
-                               atol=3e-3 * scale)
+                               atol=ATOL_REL * scale)
 
 
 def test_unsort_roundtrip():
@@ -194,14 +192,12 @@ def test_periodic_boundary_parity():
     cfg = PMConfig(softening=4.0, gradient="exact", boundary="periodic")
     pos, n_act = _flat(_cloud(1200, 12))
     st = pm_persist.init_sorted(pos, n_act, cfg)
-    st2, acc = pm_persist.accel_sorted(st, 1.0, cfg, n_active=n_act,
-                                       interpret=True)
-    a_ref = np.asarray(pm_pallas.pm_accel(_ids_order(st2), n_act, 1.0,
-                                          cfg, interpret=True))
+    st2, acc = pm_persist.accel_sorted(st, 1.0, cfg, n_active=n_act)
+    a_ref = _ref_accel(_ids_order(st2), n_act, cfg)
     ids = np.asarray(st2.ids)
     scale = np.abs(a_ref).max() + 1e-12
     np.testing.assert_allclose(np.asarray(acc), a_ref[:, ids],
-                               atol=3e-3 * scale)
+                               atol=ATOL_REL * scale)
 
 
 def test_rejects_auto_box():
@@ -212,8 +208,8 @@ def test_rejects_auto_box():
 
 
 def test_pick_chunk_budget():
-    for g in pm_pallas.SUPPORTED_GRIDS:
-        geom = pm_pallas._geom(g)
+    for g in pm_persist.SUPPORTED_GRIDS:
+        geom = pm_persist._geom(g)
         sd, sg = pm_persist._slack(geom)
         for n in (512 * 4, 1000448, 16 * 1024 * 1024):
             c = pm_persist.pick_chunk(n, geom)
@@ -221,13 +217,24 @@ def test_pick_chunk_budget():
             nc = n // c
             assert (max(sd * nc + 4 * geom.n_tiles,
                         sg * nc + 2 * geom.n_tiles_g) + 2 <= 65536)
-    # the geometry-scaled slack lands on the measured G=128 optimum
-    assert pm_persist._slack(pm_pallas._GEOM128) == (20, 24)
+    # the geometry-scaled slack: +-1 z-cell of drift at G=128
+    assert pm_persist._slack(pm_persist._GEOM128) == (20, 24)
+
+
+def test_pick_chunk_odd_capacity():
+    """A capacity no budget-fitting chunk divides (4,000,768 = 1024 *
+    3907, the engine's padding of 4M particles) takes the largest
+    dividing chunk instead of failing; non-multiples of 512 still fail."""
+    assert pm_persist.pick_chunk(4_000_768) == 1024
+    assert pm_persist.budgets(4_000_768 // 1024) == (
+        pm_persist._MAX_PAIRS, pm_persist._MAX_PAIRS)
+    with pytest.raises(ValueError, match="512"):
+        pm_persist.pick_chunk(1000)
 
 
 def test_budgets_clamped_and_sufficient():
-    """Capacities are the doubled-SLACK drift headroom clamped to SMEM,
-    and always cover a freshly-sorted order's totals (the repair
+    """Budgets are the doubled-SLACK drift headroom clamped to
+    _MAX_PAIRS, and always cover a freshly-sorted order's totals (the repair
     guarantee). (At sparse tiny N the gather totals sit against the
     per-chunk tile-span floor, so only fit — not margin — is asserted.)"""
     for n in (2048, 61440):
@@ -236,10 +243,9 @@ def test_budgets_clamped_and_sufficient():
         cap = st.pos.shape[1]
         c = pm_persist.pick_chunk(cap)
         cd, cg = pm_persist.budgets(cap // c)
-        assert cd <= pm_persist._SMEM_WORDS
-        assert cg <= pm_persist._SMEM_WORDS
-        key, _ = pm_pallas.cell_key_frac(st.pos, st.ids < n_act, CFG)
-        dt, gt = pm_persist._pair_totals(key, c)
+        assert cd <= pm_persist._MAX_PAIRS
+        assert cg <= pm_persist._MAX_PAIRS
+        dt, gt = pm_persist._pair_totals(jnp.asarray(_key(st, n_act)), c)
         assert int(dt) <= cd
         assert int(gt) <= cg
 
@@ -261,7 +267,7 @@ def test_sort_state_segmented_unit():
     rng = np.random.default_rng(21)
     n, seg, n_live = 4096, 1024, 3600
     key = np.where(np.arange(n) < n_live,
-                   rng.integers(0, 10_000, n), pm_pallas.SENTINEL)
+                   rng.integers(0, 10_000, n), pm_persist._GEOM128.sentinel)
     # scramble each segment internally (dead slots stay in tail segments)
     perm = np.concatenate([rng.permutation(seg) + i * seg
                            for i in range(n // seg)])
@@ -310,8 +316,7 @@ def test_local_repair_tier_within_segment_scramble(monkeypatch):
     st2, _ = _assert_matches_ref(st, n_act)
     assert int(st2.resorts) == 1          # tier 1 only
     # the repaired order is per-segment sorted
-    key = np.asarray(pm_pallas.cell_key_frac(
-        st2.pos, st2.ids < n_act, CFG)[0])
+    key = _key(st2, n_act)
     for i in range(n // 2048):
         assert (np.diff(key[i * 2048:(i + 1) * 2048]) >= 0).all()
 
@@ -331,33 +336,30 @@ def test_local_repair_escalates_to_global(monkeypatch):
                      ids=st.ids[perm])
     st2, _ = _assert_matches_ref(st, n_act)
     assert int(st2.resorts) == 2          # local pass + full pass
-    key = np.asarray(pm_pallas.cell_key_frac(
-        st2.pos, st2.ids < n_act, CFG)[0])
+    key = _key(st2, n_act)
     assert (np.diff(key) >= 0).all()
 
 
 def test_base_kernels_args_bit_exact():
     """Routing the Hockney kernel spectra as runtime arguments
-    (pm.base_kernels_device — mandatory at G=256, where 1.6 GB of
-    baked kernel constants broke the compile RPC) is bit-exact vs the
-    baked-constant path: same spectra, different plumbing."""
+    (pm.base_kernels_device — at G=256 the baked constants alone are
+    ~1.6 GB of program) is bit-exact vs the baked-constant path: same
+    spectra, different plumbing."""
     from particle_sim_tpu.ops import pm as pm_mod
 
     pos, n_act = _flat(_cloud(4096, 31))
     st = pm_persist.init_sorted(pos, n_act, CFG)
     bk = pm_mod.base_kernels_device(CFG, CFG.softening)
-    _, a_baked = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_act,
-                                         interpret=True)
+    _, a_baked = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_act)
     _, a_args = pm_persist.accel_sorted(st, 1.0, CFG, n_active=n_act,
-                                        interpret=True, base_kernels=bk)
+                                        base_kernels=bk)
     np.testing.assert_array_equal(np.asarray(a_baked), np.asarray(a_args))
 
 
 @pytest.mark.slow
 def test_two_tier_false_skips_local_tier(monkeypatch):
-    """``two_tier=False`` (the r5 A/B's measured win for violent scenes)
-    goes straight to the full sort: the SAME global scramble that costs
-    the two-tier path two repair passes above repairs in ONE, with the
+    """``two_tier=False`` (for violent scenes) goes straight to the full
+    sort: the SAME global scramble that costs the two-tier path two repair passes above repairs in ONE, with the
     identical exact result and a globally sorted order."""
     monkeypatch.setattr(pm_persist, "pick_segment", lambda n, c: 2048)
     pos, n_act = _flat(_cloud(8192, 24))
@@ -368,202 +370,157 @@ def test_two_tier_false_skips_local_tier(monkeypatch):
                      ids=st.ids[perm])
     st2, _ = _assert_matches_ref(st, n_act, two_tier=False)
     assert int(st2.resorts) == 1          # full pass only, no tier 1
-    key = np.asarray(pm_pallas.cell_key_frac(
-        st2.pos, st2.ids < n_act, CFG)[0])
+    key = _key(st2, n_act)
     assert (np.diff(key) >= 0).all()
 
 
-def test_segmented_deposit_table_properties():
-    """Brute-force check of _deposit_table_spans_seg over random
-    segmented orders: (1) every true (window, chunk) incidence of either
-    segment part is in the table, (2) no (window, chunk) pair appears
-    twice (the boundary-chunk dedupe), (3) entries are tile-major with
-    each tile's first fam-0 entry carrying the zero bit, (4) every tile
-    has a fam-0 first-visit."""
-    from particle_sim_tpu.ops import pm_persist as pp
-    from particle_sim_tpu.ops.pm_pallas import (
-        GRID, N_TILES, SENTINEL, SPREAD, T_ROWS, _S_BITS, _S_MASK,
-        _T_MASK, _T_SHIFT)
+G128 = pm_persist._GEOM128
 
+
+def _window_bounds(geom=G128):
+    """(lo, hi) base-row range per deposit window w = 2t + fam (the
+    _hull docstring), as numpy arrays."""
+    w = np.arange(2 * geom.n_tiles)
+    t, fam = w >> 1, w & 1
+    lo = np.maximum(t * pm_persist.T_ROWS - np.where(fam, geom.g + 1, 1), 0)
+    hi = (t + 1) * pm_persist.T_ROWS - np.where(fam, geom.g, 0) - 1
+    return lo, hi
+
+
+def _incidences(kk, mask, chunk, geom=G128):
+    """Brute force: {(window, chunk)} pairs whose rows intersect the
+    live keys of ``mask`` in that chunk."""
+    lo, hi = _window_bounds(geom)
+    out = set()
+    rows = kk >> geom.shift
+    for s in range(kk.shape[0] // chunk):
+        sl = slice(s * chunk, (s + 1) * chunk)
+        m = mask[sl] & (kk[sl] < geom.sentinel)
+        if not m.any():
+            continue
+        rmin, rmax = rows[sl][m].min(), rows[sl][m].max()
+        for w in np.nonzero((rmax >= lo) & (rmin <= hi))[0]:
+            out.add((int(w), s))
+    return out
+
+
+def _ranges(starts, counts):
+    """{window: set of chunks} of per-class (start, count) hull lists."""
+    got = {}
+    for st_, c_ in zip(starts, counts):
+        for w, (a, c) in enumerate(zip(np.asarray(st_), np.asarray(c_))):
+            got.setdefault(w, []).extend(range(int(a), int(a) + int(c)))
+    return got
+
+
+def test_segmented_window_ranges_properties():
+    """Brute-force check of _window_ranges_seg (the two-segment disorder
+    measure) over random segmented orders: (1) every true (window,
+    chunk) incidence of either segment part is inside that window's
+    hulls, (2) no (window, chunk) pair is counted twice (the
+    boundary-chunk dedup), (3) windows empty in both parts count one
+    pad entry."""
     rng = np.random.default_rng(77)
     n, chunk = 8192, 512
     nc = n // chunk
     for trial in range(4):
-        # clustered keys with dead slots, sorted per segment like a real
-        # repair would produce
         fine_b = int(rng.integers(1, n))
-        keys = rng.integers(0, SENTINEL, size=n).astype(np.int64)
-        keys[rng.random(n) < 0.1] = SENTINEL
-        a = np.sort(keys[:fine_b])
-        b = np.sort(keys[fine_b:])
-        key = jnp.asarray(np.concatenate([a, b]).astype(np.int32))
-        c_max = 4096
-        pairs = np.asarray(pp._deposit_table_spans_seg(
-            key, chunk, jnp.int32(fine_b), nc, c_max)).astype(np.int64)
-        s_k = pairs & _S_MASK
-        fam_k = (pairs >> _S_BITS) & 1
-        t_k = (pairs >> _T_SHIFT) & _T_MASK
-        first_k = (pairs < 0).astype(np.int64)   # bit 31 == int32 sign
-        real = t_k < N_TILES
-
-        # (2) no duplicates among real entries
-        seen = set()
-        for w, s in zip((2 * t_k + fam_k)[real], s_k[real]):
-            if s < nc:                      # PAD entries may repeat
-                assert (w, s) not in seen, (trial, w, s)
-                seen.add((w, s))
-
-        # (1) completeness: every per-part incidence present
-        kk = np.concatenate([a, b]).astype(np.int64)
-        rows = kk >> 7
+        keys = rng.integers(0, G128.sentinel, size=n).astype(np.int64)
+        keys[rng.random(n) < 0.1] = G128.sentinel
+        kk = np.concatenate([np.sort(keys[:fine_b]), np.sort(keys[fine_b:])])
+        key = jnp.asarray(kk.astype(np.int32))
+        spans_a, spans_b = pm_persist._seg_spans(key, chunk,
+                                                 jnp.int32(fine_b))
+        sa, ca, sb, cb = pm_persist._window_ranges_seg(spans_a, spans_b, nc,
+                                                       G128)
+        got = _ranges((sa, sb), (ca, cb))
         slot = np.arange(n)
-        for part, mask in (("A", slot < fine_b), ("B", slot >= fine_b)):
-            for s in range(nc):
-                m = mask[s * chunk:(s + 1) * chunk] & (
-                    kk[s * chunk:(s + 1) * chunk] < SENTINEL)
-                if not m.any():
-                    continue
-                r = rows[s * chunk:(s + 1) * chunk][m]
-                rmin, rmax = r.min(), r.max()
-                for w in range(2 * N_TILES):
-                    t, fam = w >> 1, w & 1
-                    lo = max(t * T_ROWS - (SPREAD if fam else 1), 0)
-                    hi = (t + 1) * T_ROWS - (GRID if fam else 0) - 1
-                    if rmax >= lo and rmin <= hi:
-                        assert (w, s) in seen, (trial, part, w, s)
-
-        # (3) tile-major order + (4) per-tile fam-0 first visit
-        t_real = t_k[real]
-        assert (np.diff(t_real) >= 0).all()
-        for t in range(N_TILES):
-            idx = np.where((t_k == t))[0]
-            assert idx.size > 0
-            f0 = idx[0]
-            assert fam_k[f0] == 0 and first_k[f0] == 1, (trial, t)
-            assert first_k[idx[1:]].sum() == 0
+        for w, chunks in got.items():
+            real = [c for c in chunks if c < nc]
+            assert len(real) == len(set(real)), (trial, w)
+            if not real:
+                assert chunks == [nc], (trial, w)     # one pad entry
+        for mask in (slot < fine_b, slot >= fine_b):
+            for w, s in _incidences(kk, mask, chunk):
+                assert s in got[w], (trial, w, s)
 
 
-def test_gather_table_spans_properties():
-    """Brute-force check of _gather_table_spans over random spans:
-    (1) every chunk's corner tile range is fully covered per family (an
-    out-of-range fam-1 tile redirects to the provably-empty (0, 1)),
-    (2) entries are chunk-major with each chunk's first entry carrying
-    the zero bit, (3) every chunk gets a first visit."""
-    from particle_sim_tpu.ops import pm_persist as pp
-    from particle_sim_tpu.ops.pm_pallas import (
-        GRID, SENTINEL, _S_BITS, _S_MASK, _T_MASK, _T_SHIFT)
-    from particle_sim_tpu.ops.pm_pallas import (
-        N_TILES_G as N_TILES, T_ROWS_G as T_ROWS)
-
+def test_gather_tiles_cover_corner_rows():
+    """_gather_tiles: each chunk's tile range covers every CIC corner row
+    (r and r+1) of its live keys, in the gather's own T_ROWS_G blocking,
+    and _pair_totals counts exactly two families per covered tile."""
     rng = np.random.default_rng(78)
     n, chunk = 8192, 512
-    nc = n // chunk
+    tg = pm_persist.T_ROWS_G
     for trial in range(4):
-        keys = rng.integers(0, SENTINEL, size=n).astype(np.int64)
-        keys[rng.random(n) < 0.15] = SENTINEL
-        key = jnp.asarray(np.sort(keys).astype(np.int32))
-        rmin, rmax = pp._chunk_spans(key, chunk)
-        c_max = 4096
-        pairs = np.asarray(pp._gather_table_spans(
-            rmin, rmax, nc, c_max)).astype(np.int64)
-        s_k = pairs & _S_MASK
-        fam_k = (pairs >> _S_BITS) & 1
-        t_k = (pairs >> _T_SHIFT) & _T_MASK
-        first_k = (pairs < 0).astype(np.int64)
-        real = s_k < nc
-
-        rmin_np, rmax_np = np.asarray(rmin), np.asarray(rmax)
-        got = set(zip(s_k[real], t_k[real], fam_k[real]))
-        for s in range(nc):
-            if rmax_np[s] < rmin_np[s]:
-                continue                       # dead chunk: skip coverage
-            t_lo = min(max(rmin_np[s] // T_ROWS, 0), N_TILES - 1)
-            t_hi = max(min((rmax_np[s] + 1) // T_ROWS, N_TILES - 1), t_lo)
-            fam_shift = GRID // T_ROWS         # fam-1 rows sit +GRID rows
-            for t in range(t_lo, t_hi + 1):
-                assert (s, t, 0) in got, (trial, s, t)
-                t1 = t + fam_shift
-                want1 = ((s, t1, 1) if t1 <= N_TILES - 1 else (s, 0, 1))
-                assert want1 in got, (trial, s, t1)
-
-        # chunk-major + per-chunk zeroing first visit (every chunk owns
-        # an output block, dead or not)
-        s_real = s_k[real]
-        assert (np.diff(s_real) >= 0).all()
-        for s in range(nc):
-            idx = np.where(s_k == s)[0]
-            assert idx.size > 0, (trial, s)
-            assert first_k[idx[0]] == 1
-            assert first_k[idx[1:]].sum() == 0
+        keys = rng.integers(0, G128.sentinel, size=n).astype(np.int64)
+        keys[rng.random(n) < 0.15] = G128.sentinel
+        kk = np.sort(keys)
+        key = jnp.asarray(kk.astype(np.int32))
+        rmin, rmax = pm_persist._chunk_spans(key, chunk)
+        t_lo, t_hi = (np.asarray(x) for x in
+                      pm_persist._gather_tiles(rmin, rmax))
+        rows = kk >> G128.shift
+        for s in range(n // chunk):
+            live = kk[s * chunk:(s + 1) * chunk] < G128.sentinel
+            if not live.any():
+                continue
+            r = rows[s * chunk:(s + 1) * chunk][live]
+            top = min(r.max() + 1, G128.rows_total - 1)
+            assert t_lo[s] * tg <= r.min(), (trial, s)
+            assert (t_hi[s] + 1) * tg > top, (trial, s)
+        _, gt = pm_persist._pair_totals(key, chunk)
+        assert int(gt) == int((2 * (t_hi - t_lo + 1)).sum())
 
 
 @pytest.mark.parametrize(
     "grid", [32, 64, pytest.param(256, marks=pytest.mark.slow)])
 def test_parity_other_grids(grid):
-    """Grid generalization (round-4 verdict item 5): the persistent path
-    reproduces pm_accel at every SUPPORTED_GRIDS size, through all three
-    ordering regimes — fresh sort, drifted-within-budget (no repair),
-    and scrambled (repair fires). G=64/32 exercise the plane-padding
-    (lane width 128 > G) branches of the tile<->grid bridges; G=256 the
-    wide-plane (256-lane) layout and the scaled seg/dead key flags
-    (periodic boundary there: the isolated Hockney solve doubles to a
-    512^3 grid — minutes of interpret-mode FFT per call on a host CPU;
-    the parity target is the solver-agnostic span/table machinery)."""
+    """Grid generalization: the persistent path reproduces the per-frame
+    reference at every SUPPORTED_GRIDS size, through all three ordering
+    regimes — fresh sort, drifted-within-budget (no repair), and
+    scrambled (repair fires). G=256 also exercises the scaled seg/dead
+    key flags (periodic boundary there: the isolated Hockney solve
+    doubles to a 512^3 grid — minutes of FFT per call on a host CPU)."""
     cfg = PMConfig(softening=4.0, gradient="exact",
                    boundary="periodic" if grid == 256 else "isolated",
                    grid=grid)
     pos, n_act = _flat(_cloud(1500, 30 + grid))
     st = pm_persist.init_sorted(pos, n_act, cfg)
 
-    def ref(st2):
-        return np.asarray(pm_pallas.pm_accel(
-            _ids_order(st2), n_act, 1.0, cfg, interpret=True))
+    def check(st_, acc_):
+        a_ref = _ref_accel(_ids_order(st_), n_act, cfg)
+        scale = np.abs(a_ref).max() + 1e-12
+        np.testing.assert_allclose(np.asarray(acc_),
+                                   a_ref[:, np.asarray(st_.ids)],
+                                   atol=ATOL_REL * scale)
 
     # fresh
-    st2, acc = pm_persist.accel_sorted(st, 1.0, cfg, n_active=n_act,
-                                       interpret=True)
-    a_ref = ref(st2)
-    ids = np.asarray(st2.ids)
-    scale = np.abs(a_ref).max() + 1e-12
-    np.testing.assert_allclose(np.asarray(acc), a_ref[:, ids],
-                               atol=3e-3 * scale)
+    st2, acc = pm_persist.accel_sorted(st, 1.0, cfg, n_active=n_act)
+    check(st2, acc)
     assert int(st2.resorts) == 0
     if grid == 256:
-        # G=256's ~9k-entry pair tables make each interpret-mode call
-        # minutes on a host CPU; the fresh-parity pass above already
-        # exercises every geometry-scaled constant (shift, plane,
-        # sentinel, class flags) — the drift/repair REGIMES are
-        # geometry-independent and covered at 32/64/128
-        return
+        return   # the drift/repair regimes are covered at 32/64/128
     # drifted within budget
     rng = np.random.default_rng(31)
     drift = jnp.asarray(rng.normal(scale=0.2, size=st2.pos.shape)
                         .astype(np.float32))
     st3, acc3 = pm_persist.accel_sorted(
-        st2._replace(pos=st2.pos + drift), 1.0, cfg, n_active=n_act,
-        interpret=True)
-    a_ref3 = ref(st3)
-    scale3 = np.abs(a_ref3).max() + 1e-12
-    np.testing.assert_allclose(np.asarray(acc3),
-                               a_ref3[:, np.asarray(st3.ids)],
-                               atol=3e-3 * scale3)
+        st2._replace(pos=st2.pos + drift), 1.0, cfg, n_active=n_act)
+    check(st3, acc3)
     # scrambled: repair fires, still exact
     perm = jnp.asarray(rng.permutation(st3.pos.shape[1]).astype(np.int32))
     st4, acc4 = pm_persist.accel_sorted(
         st3._replace(pos=st3.pos[:, perm], vel=st3.vel[:, perm],
                      ids=st3.ids[perm]),
-        1.0, cfg, n_active=n_act, interpret=True)
+        1.0, cfg, n_active=n_act)
     assert int(st4.resorts) > int(st3.resorts)
-    a_ref4 = ref(st4)
-    scale4 = np.abs(a_ref4).max() + 1e-12
-    np.testing.assert_allclose(np.asarray(acc4),
-                               a_ref4[:, np.asarray(st4.ids)],
-                               atol=3e-3 * scale4)
+    check(st4, acc4)
 
 
 def test_engine_persist_grid_64():
-    """Engine(pm_persist=True) accepts non-128 grids after the round-4
-    un-pinning and tracks the per-frame-sorted engine."""
+    """Engine(pm_persist=True) accepts non-128 grids and tracks the
+    per-frame engine."""
     import particle_sim_tpu as psim
     from particle_sim_tpu.core.params import Method
     from particle_sim_tpu.engine import Engine
@@ -583,19 +540,13 @@ def test_engine_persist_grid_64():
                                e_ref.state.positions(), rtol=0, atol=5e-3)
 
 
-def test_multi_deposit_table_properties():
-    """Brute-force check of _deposit_table_spans_multi (k+1-class order)
-    over random class layouts: same contract as the two-segment table —
-    (1) every true (window, chunk) incidence of any class part is
-    present, (2) no (window, chunk) pair appears twice (the cumulative
-    boundary-chunk dedup, including the chain case of a class contained
-    entirely inside one chunk), (3) tile-major with the fam-0 zeroing
-    first-visit per tile."""
-    from particle_sim_tpu.ops import pm_persist as pp
-    from particle_sim_tpu.ops.pm_pallas import (
-        GRID, N_TILES, SENTINEL, SPREAD, T_ROWS, _S_BITS, _S_MASK,
-        _T_MASK, _T_SHIFT)
-
+def test_multi_window_ranges_properties():
+    """Brute-force check of _window_ranges_multi (k+1-class order) over
+    random class layouts: (1) every true (window, chunk) incidence of any
+    class part is inside that window's hulls, (2) no (window, chunk) pair
+    is counted twice (the cumulative boundary-chunk dedup, including the
+    chain case of a class contained entirely inside one chunk), (3)
+    windows empty in every class count one pad entry."""
     rng = np.random.default_rng(79)
     n, chunk = 8192, 512
     nc = n // chunk
@@ -608,52 +559,83 @@ def test_multi_deposit_table_properties():
                                   min(b0 + 100, n)], np.int32)
         else:
             bounds_np = np.sort(rng.integers(0, n, size=3)).astype(np.int32)
-        keys = rng.integers(0, SENTINEL, size=n).astype(np.int64)
-        keys[rng.random(n) < 0.1] = SENTINEL
-        # sort each class region independently (what _repair produces)
+        keys = rng.integers(0, G128.sentinel, size=n).astype(np.int64)
+        keys[rng.random(n) < 0.1] = G128.sentinel
         lo = [0] + list(bounds_np)
         hi = list(bounds_np) + [n]
-        parts = [np.sort(keys[l:h]) for l, h in zip(lo, hi)]
-        kk = np.concatenate(parts).astype(np.int64)
+        kk = np.concatenate([np.sort(keys[l:h]) for l, h in zip(lo, hi)])
         key = jnp.asarray(kk.astype(np.int32))
-        c_max = 6144
-        pairs = np.asarray(pp._deposit_table_spans_multi(
-            key, chunk, jnp.asarray(bounds_np), nc, c_max)).astype(np.int64)
-        s_k = pairs & _S_MASK
-        fam_k = (pairs >> _S_BITS) & 1
-        t_k = (pairs >> _T_SHIFT) & _T_MASK
-        first_k = (pairs < 0).astype(np.int64)
-        real = t_k < N_TILES
-
-        seen = set()
-        for w, s in zip((2 * t_k + fam_k)[real], s_k[real]):
-            if s < nc:
-                assert (w, s) not in seen, (trial, w, s)
-                seen.add((w, s))
-
-        rows = kk >> 7
+        spans = pm_persist._seg_spans_multi(key, chunk,
+                                            jnp.asarray(bounds_np))
+        starts, counts = pm_persist._window_ranges_multi(spans, nc)
+        got = _ranges(starts, counts)
+        for w, chunks in got.items():
+            real = [c for c in chunks if c < nc]
+            assert len(real) == len(set(real)), (trial, w)
+            if not real:
+                assert chunks == [nc], (trial, w)
         slot = np.arange(n)
-        for ci, (l, h) in enumerate(zip(lo, hi)):
-            mask_c = (slot >= l) & (slot < h)
-            for s in range(nc):
-                m = mask_c[s * chunk:(s + 1) * chunk] & (
-                    kk[s * chunk:(s + 1) * chunk] < SENTINEL)
-                if not m.any():
-                    continue
-                r = rows[s * chunk:(s + 1) * chunk][m]
-                rmin, rmax = r.min(), r.max()
-                for w in range(2 * N_TILES):
-                    t, fam = w >> 1, w & 1
-                    wlo = max(t * T_ROWS - (SPREAD if fam else 1), 0)
-                    whi = (t + 1) * T_ROWS - (GRID if fam else 0) - 1
-                    if rmax >= wlo and rmin <= whi:
-                        assert (w, s) in seen, (trial, ci, w, s)
+        for l, h in zip(lo, hi):
+            for w, s in _incidences(kk, (slot >= l) & (slot < h), chunk):
+                assert s in got[w], (trial, l, w, s)
 
-        t_real = t_k[real]
-        assert (np.diff(t_real) >= 0).all()
-        for t in range(N_TILES):
-            idx = np.where(t_k == t)[0]
-            assert idx.size > 0
-            f0 = idx[0]
-            assert fam_k[f0] == 0 and first_k[f0] == 1, (trial, t)
-            assert first_k[idx[1:]].sum() == 0
+
+@pytest.mark.parametrize("grid", [16, 32, 64])
+@pytest.mark.parametrize("boundary", ["isolated", "periodic"])
+@pytest.mark.parametrize("with_masses", [False, True])
+def test_slot_order_deposit_matches_reference(grid, boundary, with_masses):
+    """The persistent frame's deposit — pm.cic_deposit fed the slot-order
+    cell coords and live/mass weights — equals cic_deposit_ref on the
+    identity-order particles, for any permutation (the XLA scatter-add
+    needs no sorted input)."""
+    cfg = PMConfig(softening=4.0, grid=grid, boundary=boundary)
+    pos, n_act = _flat(_cloud(1500, 40 + grid, radius=70.0))
+    n = pos.shape[1]
+    rng = np.random.default_rng(grid)
+    masses = (jnp.asarray(rng.uniform(0.5, 2.0, n).astype(np.float32))
+              if with_masses else None)
+    perm = jnp.asarray(rng.permutation(n).astype(np.int32))
+    ids = jnp.arange(n, dtype=jnp.int32)[perm]
+    w = (ids < n_act).astype(jnp.float32)
+    if with_masses:
+        w = w * masses[perm]
+    rho = pm.cic_deposit(pm.cell_coords(pos[:, perm], cfg), w, grid,
+                         boundary == "periodic")
+    ref = pm.cic_deposit_ref(pos, n_act, cfg, masses=masses)
+    np.testing.assert_allclose(np.asarray(rho), np.asarray(ref), rtol=0,
+                               atol=1e-5 * float(np.abs(ref).max()))
+    assert float(rho.sum()) == pytest.approx(float(w.sum()), rel=1e-5)
+
+
+@pytest.mark.parametrize("grid", [16, 32, 64])
+@pytest.mark.parametrize("boundary", ["isolated", "periodic"])
+def test_slot_order_gather_matches_reference(grid, boundary):
+    """pm.cic_gather at slot-order coords equals cic_gather_ref at
+    identity order, permuted — including particles outside the box
+    (clamped or wrapped by the boundary mode)."""
+    cfg = PMConfig(softening=4.0, grid=grid, boundary=boundary)
+    pos, _ = _flat(_cloud(1500, 50 + grid, radius=70.0))
+    n = pos.shape[1]
+    rng = np.random.default_rng(grid + 1)
+    grids = jnp.asarray(rng.normal(size=(3, grid, grid, grid))
+                        .astype(np.float32))
+    perm = jnp.asarray(rng.permutation(n).astype(np.int32))
+    got = pm.cic_gather(grids, pm.cell_coords(pos[:, perm], cfg), grid,
+                        boundary == "periodic")
+    ref = pm.cic_gather_ref(grids, pos, cfg)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref)[:, perm],
+                               rtol=0, atol=1e-6)
+
+
+def test_parity_check_small():
+    # the chip_smoke persistent-PM parity function, at a CPU-sized width
+    from particle_sim_tpu.utils import parity
+    r = parity.persist_pm(16384, 32)
+    assert r["ok"], r
+
+
+@pytest.mark.gpu
+def test_parity_on_card():
+    from particle_sim_tpu.utils import parity
+    r = parity.persist_pm(4_000_000, 128)
+    assert r["ok"], r

@@ -60,7 +60,7 @@ def test_exact_inside_window_beats_mesh():
     cfgx = pmx.PMXConfig(window_size=8.0, softening=EPS_X, capacity=2048,
                          window_min=tuple(CORE - 4.0))
     acc, n_m = pmx.pmx_accel(pos, n_act, 1.0, CFG, (), cfgx,
-                             use_fast=False)
+                             )
     a_x = np.asarray(acc)[:, :n]
     assert int(n_m) == -1 or int(n_m) > 0
 
@@ -140,7 +140,7 @@ def test_composes_with_pm2_stack():
     a_2 = np.asarray(pm2.pmn_accel_ref(pos, n_act, 1.0, CFG,
                                        (L1,)))[:, :n]
     acc, _ = pmx.pmx_accel(pos, n_act, 1.0, CFG, (L1,), CFGX,
-                           use_fast=False)
+                           )
     a_x = np.asarray(acc)[:, :n]
     core = np.linalg.norm(pos_np - CORE, axis=1) < 1.0
     mag = np.linalg.norm(a_dir[:, core], axis=0).mean()
@@ -160,12 +160,11 @@ def test_validation():
     pos_np, pos, n_act = _scene(5)
     with pytest.raises(ValueError, match="innermost"):
         pmx.pmx_accel(pos, n_act, 1.0, CFG, (), pmx.PMXConfig(
-            window_size=8.0, softening=5.0), use_fast=False)
+            window_size=8.0, softening=5.0))
     with pytest.raises(ValueError, match="nest"):
         pmx.pmx_accel(pos, n_act, 1.0, CFG,
                       (pm2.PM2Config(None, 16.0, softening=0.8),),
-                      pmx.PMXConfig(window_size=24.0, softening=0.1),
-                      use_fast=False)
+                      pmx.PMXConfig(window_size=24.0, softening=0.1))
 
 
 def test_engine_and_checkpoint(tmp_path):
@@ -196,7 +195,7 @@ def test_engine_and_checkpoint(tmp_path):
 
 
 def test_set_pm2_and_set_pmx_validate_at_call_site():
-    """ADVICE r4: single-level stacks get the same validation as tuples,
+    """single-level stacks get the same validation as tuples,
     and a stack swap incompatible with the installed pmx window raises
     in set_pm2 — never at trace time inside engine.step()."""
     from particle_sim_tpu.core.params import Method
@@ -223,7 +222,7 @@ def test_set_pm2_and_set_pmx_validate_at_call_site():
     assert e.pmx is None
 
     # persist mode: dropping below a multi-level stack while pmx rides
-    # the class order is rejected at the call site (ADVICE r4 item 4)
+    # the class order is rejected at the call site
     L2 = pm2.PM2Config(window_min=None, window_size=8.0, softening=0.4)
     cfgx = pmx.PMXConfig(window_size=4.0, softening=EPS_X, capacity=1024)
     ep = Engine(particle_count=1024, method=Method.JNP, pm=CFG,
@@ -236,7 +235,7 @@ def test_set_pm2_and_set_pmx_validate_at_call_site():
 
 
 def test_truncation_overflow_is_warned(caplog):
-    """ADVICE r4: an overflowing exact window must LOG, not silently
+    """an overflowing exact window must LOG, not silently
     degrade — the engine polls the device counters and warns once per
     episode; pmx_member_count() is the on-demand readout."""
     import logging
@@ -271,7 +270,7 @@ def test_truncation_overflow_is_warned(caplog):
 
 
 def test_persist_pmx_steady_frame_has_no_sort():
-    """VERDICT r4 item 3 'done' criterion: on the persistent multi-level
+    """on the persistent multi-level
     order the window-exact member buffer is ONE dynamic slice of the
     contiguous innermost class — the traced frame contains ZERO sort
     primitives outside the repair conds (ops/pmx.py's per-frame path
@@ -340,7 +339,7 @@ def test_persist_pmx_steady_frame_has_no_sort():
 
 @pytest.mark.slow
 def test_pmx_mesh_matches_single_device():
-    """VERDICT r4 item 2: multi-chip pmx — each shard contributes
+    """multi-device pmx — each shard contributes
     capacity/n_dev slots of its innermost class to one all_gather'd
     member buffer; the sharded flagship composition (persistent
     multi-level + exact window) must match the single-device step in

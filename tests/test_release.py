@@ -80,18 +80,19 @@ def test_warm_kernels_cpu(tmp_path):
     import sys
 
     out = str(tmp_path / "dist")
+    cache = str(tmp_path / "cache")
     code = (
         "import jax; jax.config.update('jax_platforms', 'cpu')\n"
         "from particle_sim_tpu.app import release\n"
         f"release.warm_kernels({out!r}, counts=[1024])\n"
     )
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=cache)
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=repo_root,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    cache = os.path.join(out, "xla-cache")
-    assert os.path.isdir(cache)
-    # the persistent cache actually captured compiled executables
+    # the cache is written where the variable says, and nowhere else
     assert any(os.scandir(cache)), "empty XLA cache after warm"
+    assert not os.path.exists(os.path.join(out, "xla-cache"))

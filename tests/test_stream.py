@@ -176,8 +176,8 @@ class TestStreamServer:
         assert hello["type"] == "hello"
         assert "jnp" in hello["methods"]
         assert hello["count"] == 2000
-        # panel-reflection fields ride the hello (r5: two_tier joins
-        # the pm2/pmx solver-state block)
+        # panel-reflection fields ride the hello (two_tier joins the
+        # pm2/pmx solver-state block)
         assert hello["two_tier"] is True
         s.close()
 
@@ -351,7 +351,7 @@ class TestSolverEvents:
     @pytest.mark.slow
     def test_solver_event_pm2_stack(self):
         """pm2_sizes/pm2_softenings on a solver event install / swap /
-        clear the refinement stack at runtime (round-4 live multi-level
+        clear the refinement stack at runtime (live multi-level
         switching); invalid stacks are rejected keeping the old one."""
         import numpy as np
         from particle_sim_tpu.app.server import StreamServer
@@ -388,7 +388,7 @@ class TestSolverEvents:
         assert np.isfinite(engine.state.positions()).all()
 
     def test_solver_event_validates_whole_config(self):
-        """ADVICE r4 (medium): a solver event whose NEW coarse softening
+        """A solver event whose NEW coarse softening
         is incompatible with the RETAINED refinement stack must be
         rejected as a whole at event time — the old handler committed
         engine.pm first, then engine.step() raised inside the sim
@@ -414,7 +414,7 @@ class TestSolverEvents:
         assert np.isfinite(engine.state.positions()).all()
 
     def test_solver_event_pmx_live(self):
-        """VERDICT r4 item 5: the window-exact correction is runtime-
+        """The window-exact correction is runtime-
         switchable through the same validate-then-apply event path as
         the pm2 stack; invalid windows are rejected loudly keeping the
         old one; pmx_size <= 0 clears it."""
@@ -452,9 +452,9 @@ class TestSolverEvents:
 
     def test_solver_event_two_tier(self):
         """The persistent-repair strategy flips live through the solver
-        event (r5: the A/B measured full-sort-only as the win for
-        violent scenes) and is reported back in the state message so
-        the panel checkbox reflects server state."""
+        event (full-sort-only repairs for violent scenes) and is
+        reported back in the state message so the panel checkbox
+        reflects server state."""
         from particle_sim_tpu.app.server import StreamServer
         from particle_sim_tpu.core.params import Method
 
@@ -533,7 +533,8 @@ class TestSolverEvents:
     def test_raster_wire_mode(self, server):
         """Wire mode 2: the server renders on device and streams the
         RGBA8 framebuffer — wire cost is resolution-bound, not N-bound
-        (the 16M-viewing path). Sizes snap to the 8-px tile grid."""
+        (the 16M-viewing path). Sizes are clamped to [64, 3840] x
+        [64, 2160]."""
         s = ws_connect("127.0.0.1", server.port)
         ws_recv_binary(s)
         # fragment brightness is min(2|v|,1) (particle.wgsl:41-44): a
@@ -555,7 +556,7 @@ class TestSolverEvents:
                 break
         assert mode == 2
         count = struct.unpack("<I", frame[8:12])[0]
-        assert (w, h) == (128, 64)  # w snapped UP to the 128-lane tile, h down to /8
+        assert (w, h) == (70, 67)
         assert count == w * h
         assert len(frame) == HDR + 8 + 4 * w * h
         pix = np.frombuffer(frame, np.uint8, offset=HDR + 8).reshape(h, w, 4)

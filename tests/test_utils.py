@@ -112,20 +112,3 @@ class TestBinSearch:
         probes = jnp.asarray(np.int32([500, 99, 100]))
         got = np.asarray(bin_search(arr, probes, False, n_iters=40))
         np.testing.assert_array_equal(got, [100, 99, 100])
-
-
-def test_rank_right_iota_matches_searchsorted():
-    """rank_right_iota == searchsorted(base, arange(c_max), 'right') - 1
-    including duplicate base entries (empty windows), base[0] == 0, and
-    out-of-range bases (dropped)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from particle_sim_tpu.utils.search import rank_right_iota
-
-    rng = np.random.default_rng(5)
-    for c_max in (17, 513, 4096):
-        base = np.sort(rng.integers(0, c_max + 40, size=33)).astype(np.int32)
-        base[0] = 0
-        want = np.searchsorted(base, np.arange(c_max), side="right") - 1
-        got = np.asarray(rank_right_iota(jnp.asarray(base), c_max))
-        np.testing.assert_array_equal(got, want)

@@ -1,4 +1,4 @@
-"""Golden wire-decode test for the JS viewer client (VERDICT r2 #9).
+"""Golden wire-decode test for the JS viewer client.
 
 No JS runtime ships in this image, so the client is pinned two ways:
 
@@ -185,22 +185,19 @@ def test_mirror_decode_raster_mode():
 
 
 def test_raster_mode_golden_frame():
-    """VERDICT r4 item 7: the 16M interactive path's PIXELS are pinned,
-    not just its packets. A fixed scene rendered through
-    render/raster_compact.py (the engine default above 200k — the 16M
-    path), wrapped in the exact mode-2 wire layout and decoded by the
-    JS-mirror decode, must match the stored golden frame
-    (tests/data/golden_raster_256x128.npz — generated by the
-    independent XLA-scatter oracle renderer with velocity-brightness
-    shading, particle.wgsl:38-45 semantics). Tolerance: a few u8
-    levels, for accumulation-order float differences between the
-    compact segmented-sort deposit and the oracle scatter."""
+    """The raster path's PIXELS are pinned, not just its packets. A fixed
+    scene rendered through render/raster.py (the engine's one
+    rasterizer), wrapped in the exact mode-2 wire layout and decoded by
+    the JS-mirror decode, must match the stored golden frame
+    (tests/data/golden_raster_256x128.npz, velocity-brightness shading,
+    particle.wgsl:38-45 semantics). Tolerance: a few u8 levels, for
+    accumulation-order float differences of the scatter-add."""
     import jax.numpy as jnp
 
     from particle_sim_tpu.core import generate as G
     from particle_sim_tpu.core.params import SimParams
     from particle_sim_tpu.core.state import ParticleState
-    from particle_sim_tpu.render import raster, raster_compact
+    from particle_sim_tpu.render import raster
     from particle_sim_tpu.render.camera import Camera
 
     w, h = 256, 128
@@ -209,9 +206,8 @@ def test_raster_mode_golden_frame():
     st = ParticleState.from_arrays(pos, vel, col)
     pv = jnp.asarray(SimParams().pack())
     vp = jnp.asarray(Camera(aspect=w / h).view_proj())
-    fb = raster_compact.render(st.pos, st.vel, st.init_color, pv, vp,
-                               st.n_active, width=w, height=h,
-                               interpret=True)
+    fb = raster.render(st.pos, st.vel, st.init_color, pv, vp,
+                       st.n_active, width=w, height=h)
     rgba = np.asarray(raster.to_rgba8(fb))
     payload = struct.pack("<II", w, h) + rgba.tobytes()
     got = _js_handle_frame(_frame(2, payload, w * h))
